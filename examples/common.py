@@ -6,14 +6,9 @@ import sys
 # allow running straight from a repo checkout without pip install
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
+from gemini_seal import compile_cache  # noqa: E402
 
-import jax
-
-if os.environ.get("GST_EXAMPLES_TPU", "0") != "1":
-    jax.config.update("jax_platforms", "cpu")
+compile_cache.enable()
 
 
 def print_parameters(context):

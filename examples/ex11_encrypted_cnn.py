@@ -23,7 +23,7 @@ import numpy as np
 
 from common import print_parameters
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -34,8 +34,8 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.ciphertext import Ciphertext
-from gemini_seal_tpu.models.pipelines import build_ckks_cnn
+from gemini_seal.ciphertext import Ciphertext
+from gemini_seal.models.pipelines import build_ckks_cnn
 
 
 def main():

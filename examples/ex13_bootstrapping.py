@@ -32,7 +32,7 @@ import numpy as np
 
 from common import print_parameters
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -44,8 +44,8 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.ciphertext import Ciphertext
-from gemini_seal_tpu.models.bootstrap import build_ckks_bootstrap
+from gemini_seal.ciphertext import Ciphertext
+from gemini_seal.models.bootstrap import build_ckks_bootstrap
 
 
 def main():

@@ -6,7 +6,7 @@ watching the noise budget shrink through squarings.
 
 from common import print_parameters
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CoeffModulus,
     Decryptor,
     EncryptionParameters,

@@ -5,7 +5,7 @@ IntegerEncoder, BatchEncoder SIMD slots, and CKKSEncoder basics.
 
 from common import print_parameters, print_vector
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     BatchEncoder,
     CKKSEncoder,
     CoeffModulus,

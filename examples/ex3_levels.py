@@ -6,7 +6,7 @@ noise-budget management down the chain.
 
 from common import print_parameters
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CoeffModulus,
     Decryptor,
     EncryptionParameters,

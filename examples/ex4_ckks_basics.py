@@ -10,7 +10,7 @@ import math
 
 from common import print_parameters, print_vector
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,

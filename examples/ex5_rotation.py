@@ -6,7 +6,7 @@ The fork's version sets n_special_primes(1) (5_rotation.cpp:135).
 
 from common import print_parameters, print_vector
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     BatchEncoder,
     CKKSEncoder,
     CoeffModulus,

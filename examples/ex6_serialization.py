@@ -8,7 +8,7 @@ import io
 
 from common import print_parameters
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -19,7 +19,7 @@ from gemini_seal_tpu import (
     SchemeType,
     SealContext,
 )
-from gemini_seal_tpu import serialization as ser
+from gemini_seal import serialization as ser
 
 
 def main():

@@ -1,11 +1,11 @@
 """Example 7: performance test (reference: native/examples/7_performance.cpp).
 
 Times each operation per scheme, averaged over `count` runs, for a sweep of
-poly_modulus_degrees.  On TPU, per-op timing includes a jit warm-up; the
+poly_modulus_degrees.  Device-plane timing excludes a jit warm-up; the
 steady-state numbers are what count (the reference's methodology is a plain
 wall-clock average too).
 
-Usage: python ex7_performance.py [--n 4096] [--count 10] [--tpu]
+Usage: python ex7_performance.py [--n 4096] [--count 10]
 """
 
 import argparse
@@ -15,7 +15,7 @@ from common import print_parameters
 
 import jax
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     BatchEncoder,
     CKKSEncoder,
     CoeffModulus,

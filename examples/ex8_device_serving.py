@@ -1,4 +1,4 @@
-"""Example 8: TPU-speed serving (no reference analogue).
+"""Example 8: device-speed serving (no reference analogue).
 
 Shows the three execution tiers on the same computation
 (square + relinearize + rescale + rotate on CKKS data):
@@ -19,7 +19,7 @@ import numpy as np
 
 from common import print_parameters
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -32,7 +32,7 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.models.pipelines import build_ckks_train_step
+from gemini_seal.models.pipelines import build_ckks_train_step
 
 
 def main():

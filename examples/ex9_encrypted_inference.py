@@ -18,7 +18,7 @@ import numpy as np
 
 from common import print_parameters
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -30,8 +30,8 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.ciphertext import Ciphertext
-from gemini_seal_tpu.models.pipelines import build_ckks_matvec
+from gemini_seal.ciphertext import Ciphertext
+from gemini_seal.models.pipelines import build_ckks_matvec
 
 
 def main():
@@ -101,7 +101,7 @@ def main():
 
     # the same layer as ONE fused jitted program (raw-accumulator matvec
     # with a single mod-down + rescale + bias + square, fully on device)
-    from gemini_seal_tpu.models.pipelines import build_ckks_dense_layer
+    from gemini_seal.models.pipelines import build_ckks_dense_layer
 
     bias = [b[i % dim] for i in range(slots)]
     rk_data = np.stack([np.asarray(pk.data.data) for pk in rk.key(2)])

@@ -1,12 +1,12 @@
-// Native runtime components for gemini_seal_tpu.
+// Native runtime components for gemini_seal.
 //
 // The reference implements its host runtime (PRNG, samplers, serialization
 // helpers) in C/C++ (randomgen.cpp, util/blake2b.c, util/rlwe.cpp); this is
-// the TPU build's native equivalent, exposed through a flat C ABI consumed
-// via ctypes (gemini_seal_tpu/utils/native.py).  The BLAKE2b implementation
+// this framework's native equivalent, exposed through a flat C ABI consumed
+// via ctypes (gemini_seal/utils/native.py).  The BLAKE2b implementation
 // is written from the RFC 7693 specification.
 //
-// Build: tools/build_native.sh -> gemini_seal_tpu/_gst_native.so
+// Build: tools/build_native.sh -> gemini_seal/_gst_native.so
 
 #include <cstdint>
 #include <cstring>
@@ -169,7 +169,7 @@ int gst_prng_fill(uint8_t *out, uint64_t nbytes, const uint64_t seed[8],
 // SEALHeader {magic 0xA15E, size 0x10, version 3.5, compr_mode, reserved,
 // u64 total} + optional zlib deflate — byte-identical to the reference's
 // Serialization::Save (serialization.{h,cpp}) and to the Python fallback
-// (gemini_seal_tpu/serialization.py uses the same zlib at default level).
+// (gemini_seal/serialization.py uses the same zlib at default level).
 // ---------------------------------------------------------------------------
 
 #include <zlib.h>
@@ -237,7 +237,7 @@ int64_t gst_unframe(uint8_t *out, uint64_t out_cap, const uint8_t *data,
 
 // ---------------------------------------------------------------------------
 // Host-plane negacyclic NTT (forward/inverse), bit-identical to the
-// vectorized transforms in gemini_seal_tpu/ops/ntt.py (which are pinned to
+// vectorized transforms in gemini_seal/ops/ntt.py (which are pinned to
 // the reference ntt.cpp:213-282): Shoup lazy butterflies, forward output
 // [0, 4p) (canonical via two conditional subtracts), inverse [0, 2p)
 // (canonical via one).  The host object layer (encoders, decryptor,

@@ -8,7 +8,7 @@ import math
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -19,8 +19,8 @@ from gemini_seal_tpu import (
     SealContext,
     SecLevelType,
 )
-from gemini_seal_tpu.ciphertext import Ciphertext
-from gemini_seal_tpu.models.pipelines import attention_plan, build_ckks_attention
+from gemini_seal.ciphertext import Ciphertext
+from gemini_seal.models.pipelines import attention_plan, build_ckks_attention
 
 _RIGS = {}
 

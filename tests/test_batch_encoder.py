@@ -6,7 +6,7 @@ key-switch rewrite; these verify the corrected behavior)."""
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     BatchEncoder,
     CoeffModulus,
     Decryptor,
@@ -115,7 +115,7 @@ def test_integer_encoder(setup):
 
 
 # ---------------------------------------------------------------------------
-# generator-3 compat mode (reference slot-order interop; VERDICT r1 item 5a)
+# generator-3 compat mode (reference slot-order interop)
 # ---------------------------------------------------------------------------
 
 def test_compat_gen3_roundtrip_and_distinct_map(setup):

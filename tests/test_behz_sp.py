@@ -9,7 +9,7 @@ import pytest
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     BatchEncoder,
     CoeffModulus,
     Decryptor,
@@ -21,10 +21,10 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.ciphertext import Ciphertext
-from gemini_seal_tpu.models.pipelines import build_bfv_mul_relin
-from gemini_seal_tpu.parallel.behz_sp import bfv_mul_relin_limb_sharded
-from gemini_seal_tpu.parallel.comm import collective_stats
+from gemini_seal.ciphertext import Ciphertext
+from gemini_seal.models.pipelines import build_bfv_mul_relin
+from gemini_seal.parallel.behz_sp import bfv_mul_relin_limb_sharded
+from gemini_seal.parallel.comm import collective_stats
 
 SEED = tuple(range(71, 79))
 
@@ -52,7 +52,7 @@ def _mesh(*shape_names):
 
 
 def _case(ctx, kg, batch=None):
-    from gemini_seal_tpu import Plaintext
+    from gemini_seal import Plaintext
 
     enc = Encryptor(ctx, public_key=kg.public_key())
     rk = kg.relin_keys()

@@ -8,7 +8,7 @@ insecure parameters, exact plaintext comparison.
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CoeffModulus,
     Decryptor,
     EncryptionParameters,
@@ -115,7 +115,7 @@ def test_seeded_determinism(ctx):
 def test_encrypt_zero_at_lower_level(actors):
     """Zero-encryption below the first level mod-switches down from the
     previous level (reference: encryptor.cpp:144-173)."""
-    from gemini_seal_tpu import CoeffModulus, EncryptionParameters, SchemeType, SecLevelType, SealContext
+    from gemini_seal import CoeffModulus, EncryptionParameters, SchemeType, SecLevelType, SealContext
 
     parms = EncryptionParameters(SchemeType.BFV)
     parms.set_poly_modulus_degree(64)

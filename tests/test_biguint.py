@@ -1,6 +1,6 @@
 """BigUInt API parity tests (reference: native/tests/seal/biguint.cpp)."""
 
-from gemini_seal_tpu import BigUInt
+from gemini_seal import BigUInt
 
 
 def test_ctor_and_hex():

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -29,15 +29,15 @@ from gemini_seal_tpu import (
     SealContext,
     SecLevelType,
 )
-from gemini_seal_tpu.ciphertext import Ciphertext
-from gemini_seal_tpu.models.bootstrap import (
+from gemini_seal.ciphertext import Ciphertext
+from gemini_seal.models.bootstrap import (
     ModRaisePlan,
     _matrix_diagonals,
     build_ckks_bootstrap,
     derive_slot_matrices,
     mod_raise,
 )
-from gemini_seal_tpu.ops.ntt import ntt_forward, ntt_inverse
+from gemini_seal.ops.ntt import ntt_forward, ntt_inverse
 
 
 def _ckks_context(n, bits, seed=(1, 2, 3, 4, 5, 6, 7, 8), nsp=1):
@@ -138,7 +138,7 @@ def test_special_fft_stages_factor_the_slot_transform():
     coefficient half), E[:, s:] == i*E1 (the packing identity), and the
     inverse chain with the permutation OMITTED still roundtrips through a
     slot-wise function — the exact cancellation split-mode relies on."""
-    from gemini_seal_tpu.models.bootstrap import (_collapse_chain,
+    from gemini_seal.models.bootstrap import (_collapse_chain,
                                                   special_fft_stage_diagonals)
 
     ctx = _ckks_context(128, [45, 45])
@@ -203,7 +203,7 @@ def _run_bootstrap_e2e(linear_mode, radix=3, evalmod="cosine", tol=1e-4,
     bootstrap-consumed level): the refresh error floor collapses from
     the 45-bit layout's q0/Dl-amplified ~4e-5 to the ~1e-7 regime, so
     split tests pin tol=1e-6."""
-    from gemini_seal_tpu.models.evalmod import plan_evalmod
+    from gemini_seal.models.evalmod import plan_evalmod
 
     if evalmod == "exp":
         r = 8
@@ -291,7 +291,7 @@ def test_bootstrap_e2e_exp_legacy():
 
 @pytest.mark.bootstrap_e2e
 def test_bootstrap_e2e_n1024_production():
-    """Non-toy shape (VERDICT r4 item 2): N=1024, nsp=2 special primes,
+    """Non-toy shape: N=1024, nsp=2 special primes,
     radix=4 (the bench configuration's radix) — K=34, so the Chebyshev
     degree (90) and double-angle count are production-sized, not the
     N=128 toy's.  On the round-5 Dl_em layout the measured refresh error

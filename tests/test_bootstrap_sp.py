@@ -23,7 +23,7 @@ import pytest
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -35,10 +35,10 @@ from gemini_seal_tpu import (
     SealContext,
     SecLevelType,
 )
-from gemini_seal_tpu.ciphertext import Ciphertext
-from gemini_seal_tpu.models.pipelines import build_ckks_matvec
-from gemini_seal_tpu.parallel.bootstrap_sp import build_ckks_matvec_limb_sharded
-from gemini_seal_tpu.parallel.comm import assert_collectives, collective_stats
+from gemini_seal.ciphertext import Ciphertext
+from gemini_seal.models.pipelines import build_ckks_matvec
+from gemini_seal.parallel.bootstrap_sp import build_ckks_matvec_limb_sharded
+from gemini_seal.parallel.comm import assert_collectives, collective_stats
 
 needs8 = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -107,7 +107,7 @@ def test_bootstrap_c2s_group_limb_sharded():
     """A REAL CoeffToSlot group (split mode, radix 2, constants folded as
     in build_ckks_bootstrap) runs limb-sharded bit-exact: the bootstrap's
     linear stages shard with the same one-gather schedule as serving."""
-    from gemini_seal_tpu.models.bootstrap import (
+    from gemini_seal.models.bootstrap import (
         _collapse_chain,
         _scale_diagonals,
         special_fft_stage_diagonals,
@@ -158,7 +158,7 @@ def test_bootstrap_c2s_group_limb_sharded():
 def test_bootstrap_stage_dp_sharded_zero_collectives():
     """Ciphertext-batch DP over a bootstrap linear stage moves ZERO bytes:
     the matvec program is batch-polymorphic and dp is a free axis."""
-    from gemini_seal_tpu.parallel.mesh import make_he_mesh
+    from gemini_seal.parallel.mesh import make_he_mesh
 
     n = 64
     ctx = _ckks_context(n, [40] * 9, nsp=1)
@@ -190,7 +190,7 @@ def test_bootstrap_stage_dp_sharded_zero_collectives():
     da = jax.device_put(a, ct_sh)
     dk = jax.device_put(keys, key_sh)
     stats = collective_stats(step.lower(da, dk).compile().as_text())
-    assert stats.total_bytes == 0, f"unexpected ICI traffic: {stats}"
+    assert stats.total_bytes == 0, f"unexpected collective traffic: {stats}"
     # rows identical to the unsharded program
     want = np.asarray(jax.jit(
         build_ckks_matvec(ctx, diag, scale, encoder))(a[0], keys))
@@ -204,11 +204,11 @@ def test_bootstrap_dp_sharded_refresh_e2e():
     batch: both batch rows decrypt to the refreshed message, identical to
     each other and within the e2e tolerance — the flagship capability
     scales over the batch axis with zero schedule changes."""
-    from gemini_seal_tpu.models.bootstrap import (
+    from gemini_seal.models.bootstrap import (
         build_ckks_bootstrap,
         plan_bootstrap_chain,
     )
-    from gemini_seal_tpu.parallel.mesh import make_he_mesh
+    from gemini_seal.parallel.mesh import make_he_mesh
 
     n, radix = 128, 3
     bits, n_levels, K = plan_bootstrap_chain(n, radix=radix, nsp=1)

@@ -7,7 +7,7 @@ bit-exact interop anchors.
 
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CoeffModulus,
     EncryptionParameters,
     Modulus,
@@ -15,7 +15,7 @@ from gemini_seal_tpu import (
     SchemeType,
     SecLevelType,
 )
-from gemini_seal_tpu.context import ErrorType, SealContext
+from gemini_seal.context import ErrorType, SealContext
 
 
 def bfv_parms_4096():

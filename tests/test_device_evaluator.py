@@ -4,7 +4,7 @@ Evaluator for every op, with ciphertexts resident as device arrays."""
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     BatchEncoder,
     CKKSEncoder,
     CoeffModulus,
@@ -18,7 +18,7 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.models.device_evaluator import DeviceEvaluator
+from gemini_seal.models.device_evaluator import DeviceEvaluator
 
 SEED = tuple(range(31, 39))
 
@@ -151,7 +151,7 @@ def test_multiply_relin_rescale_one_call(ckks):
 
 
 def test_device_surface_parity_extended(ckks):
-    """The round-2 surface closure (VERDICT r1 weak point #5): sub_plain,
+    """The round-2 surface closure: sub_plain,
     transform_to/from_ntt, mod_switch_to/rescale_to(parms_id), add_many —
     each bit-exact vs the host Evaluator."""
     ctx, kg, enc, encoder = ckks
@@ -254,7 +254,7 @@ def test_device_rotate_naf_fallback(ckks):
     """DeviceEvaluator mirrors the host rotation guards: NAF fallback for
     composite steps, clean error for a power-of-two step with a missing
     key (host parity, evaluator.cpp:1945-1999)."""
-    from gemini_seal_tpu import Decryptor
+    from gemini_seal import Decryptor
 
     ctx, kg, enc, encoder = ckks
     dev = DeviceEvaluator(ctx)

@@ -6,7 +6,7 @@ contract (no reference analogue; its only backend is eager C++)."""
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     BatchEncoder,
     CKKSEncoder,
     CoeffModulus,
@@ -20,7 +20,7 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.models.device_evaluator import DeviceEvaluator
+from gemini_seal.models.device_evaluator import DeviceEvaluator
 
 SEED = tuple(range(51, 59))
 

@@ -12,7 +12,7 @@ import math
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -23,8 +23,8 @@ from gemini_seal_tpu import (
     SealContext,
     SecLevelType,
 )
-from gemini_seal_tpu.ciphertext import Ciphertext
-from gemini_seal_tpu.models.evalmod import (
+from gemini_seal.ciphertext import Ciphertext
+from gemini_seal.models.evalmod import (
     ChebyEvalMod,
     _plan_lt,
     fit_cos_cheby,

@@ -5,7 +5,7 @@ tests/seal/evaluator.cpp (tiny insecure parameters, exact comparison)."""
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CoeffModulus,
     Decryptor,
     EncryptionParameters,

@@ -7,8 +7,8 @@ apply_galois[_ntt] vectors are generator-independent)."""
 import numpy as np
 import pytest
 
-from gemini_seal_tpu.ops.dyadic import LimbConstants
-from gemini_seal_tpu.ops.galois import GaloisTool
+from gemini_seal.ops.dyadic import LimbConstants
+from gemini_seal.ops.galois import GaloisTool
 
 
 def test_elt_from_step_generator5():
@@ -35,7 +35,7 @@ def test_elt_from_step_generator3_matches_reference():
 
 def test_index_from_elt():
     """tests/seal/util/galois.cpp:71-77."""
-    from gemini_seal_tpu.keys import GaloisKeys
+    from gemini_seal.keys import GaloisKeys
 
     assert GaloisKeys.get_index(15) == 7
     assert GaloisKeys.get_index(3) == 1

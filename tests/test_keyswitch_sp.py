@@ -9,7 +9,7 @@ import pytest
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -21,9 +21,9 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.ops.keyswitch import KeySwitchPlan, switch_key
-from gemini_seal_tpu.parallel.comm import collective_stats
-from gemini_seal_tpu.parallel.keyswitch_sp import switch_key_limb_sharded
+from gemini_seal.ops.keyswitch import KeySwitchPlan, switch_key
+from gemini_seal.parallel.comm import collective_stats
+from gemini_seal.parallel.keyswitch_sp import switch_key_limb_sharded
 
 SEED = tuple(range(91, 99))
 
@@ -112,7 +112,7 @@ def test_single_gather_comm_profile():
 def test_bit_exact_bfv_power_basis():
     """BFV (power-basis) dataflow: same single-gather schedule, bit-exact
     vs the in-core switch_key(is_ntt_form=False)."""
-    from gemini_seal_tpu import PlainModulus, Plaintext
+    from gemini_seal import PlainModulus, Plaintext
 
     parms = EncryptionParameters(SchemeType.BFV)
     n = 64
@@ -146,8 +146,8 @@ def test_full_pipeline_limb_sharded_bit_exact():
     [:n_ct-1] bit-exact vs pipelines.build_ckks_mul_relin_rescale; the
     dropped q_last row comes back zeroed; comm = 1 all-gather + 1
     tiny one-row all-reduce broadcast."""
-    from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale
-    from gemini_seal_tpu.parallel.keyswitch_sp import (
+    from gemini_seal.models.pipelines import build_ckks_mul_relin_rescale
+    from gemini_seal.parallel.keyswitch_sp import (
         ckks_mul_relin_rescale_limb_sharded,
     )
 
@@ -193,8 +193,8 @@ def test_full_pipeline_limb_sharded_bit_exact():
 def test_full_pipeline_realistic_shape():
     """Explicit full pipeline at the realistic serving shape
     (N=4096, L=8, nsp=2, batch 2), rows bit-exact vs the in-core step."""
-    from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale
-    from gemini_seal_tpu.parallel.keyswitch_sp import (
+    from gemini_seal.models.pipelines import build_ckks_mul_relin_rescale
+    from gemini_seal.parallel.keyswitch_sp import (
         ckks_mul_relin_rescale_limb_sharded,
     )
 
@@ -228,7 +228,7 @@ def test_rotate_many_hoisted_bit_exact_and_profile():
     Evaluator.apply_galois_many, and the compiled program contains exactly
     ONE all-gather for ALL k rotations (the hoisted mod-up digits are
     shared; per-step Galois permutations act on the unsharded N axis)."""
-    from gemini_seal_tpu.parallel.keyswitch_sp import rotate_many_limb_sharded
+    from gemini_seal.parallel.keyswitch_sp import rotate_many_limb_sharded
 
     ctx, kg = setup(64, [30] * 5, nsp=1)
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -271,8 +271,8 @@ def test_rotate_many_hoisted_bit_exact_and_profile():
 def test_rotate_many_hoisted_bfv_power_basis():
     """BFV hoisted rotation bundle (power-basis c0 permutation with sign
     fold) on the explicit schedule, bit-exact vs apply_galois_many."""
-    from gemini_seal_tpu import PlainModulus, Plaintext
-    from gemini_seal_tpu.parallel.keyswitch_sp import rotate_many_limb_sharded
+    from gemini_seal import PlainModulus, Plaintext
+    from gemini_seal.parallel.keyswitch_sp import rotate_many_limb_sharded
 
     parms = EncryptionParameters(SchemeType.BFV)
     n = 64
@@ -334,7 +334,7 @@ def test_dp_limb_switch_bit_exact_and_profile():
     target = np.stack([base * 0 + base, np.roll(base, 1, axis=-1),
                        base, base[:, ::-1].copy()])  # batch 4, distinct
     kdata = np.stack([np.asarray(pk.data.data) for pk in rk.key(2)])
-    from gemini_seal_tpu.ops.keyswitch import switch_key as sk_incore
+    from gemini_seal.ops.keyswitch import switch_key as sk_incore
 
     want0, want1 = sk_incore(target, kdata, plan, True)
 
@@ -363,8 +363,8 @@ def test_dp_limb_switch_bit_exact_and_profile():
 def test_dp_limb_full_pipeline_bit_exact():
     """mul+relin+rescale on the (dp=2, limb=4) mesh, rows bit-exact vs
     the in-core step at a realistic batched shape."""
-    from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale
-    from gemini_seal_tpu.parallel.keyswitch_sp import (
+    from gemini_seal.models.pipelines import build_ckks_mul_relin_rescale
+    from gemini_seal.parallel.keyswitch_sp import (
         ckks_mul_relin_rescale_limb_sharded,
     )
 

@@ -1,4 +1,4 @@
-"""Lazy-reduction range contracts (VERDICT r1 item 6).
+"""Lazy-reduction range contracts.
 
 The fused pipelines chain the `_lazy` NTT variants between stages: forward
 output in [0, 4p), inverse output in [0, 2p), consumed ONLY by full-range
@@ -11,16 +11,16 @@ barrett_reduce_128's full-range validity).
 
 import numpy as np
 
-from gemini_seal_tpu.modulus import CoeffModulus
-from gemini_seal_tpu.ops import modops
-from gemini_seal_tpu.ops.ntt import (
+from gemini_seal.modulus import CoeffModulus
+from gemini_seal.ops import modops
+from gemini_seal.ops.ntt import (
     build_ntt_tables,
     ntt_forward,
     ntt_forward_lazy,
     ntt_inverse,
     ntt_inverse_lazy,
 )
-from gemini_seal_tpu.utils.numth import get_primes
+from gemini_seal.utils.numth import get_primes
 
 
 def _tables(n, bits, count=3):
@@ -61,7 +61,7 @@ def test_barrett_consumers_exact_on_lazy_inputs():
     from [0, 4p) x [0, 4p) — the property the chaining's bit-exactness
     rests on."""
     rng = np.random.default_rng(9)
-    from gemini_seal_tpu.ops.dyadic import LimbConstants
+    from gemini_seal.ops.dyadic import LimbConstants
 
     primes = get_primes(2048, 61, 2)
     limbs = LimbConstants.from_moduli(primes)
@@ -81,7 +81,7 @@ def test_lazy_chained_keyswitch_bit_exact():
     """End-to-end: the lazy-chained key-switch (compute_modup_digits with
     [0,2p)/[0,4p) internal ranges) produces bit-identical switch_key output
     to a from-scratch canonical recomputation via reduced inputs."""
-    from gemini_seal_tpu import (
+    from gemini_seal import (
         CKKSEncoder, Decryptor, EncryptionParameters, Encryptor, Evaluator,
         KeyGenerator, SchemeType, SecLevelType, SealContext,
     )
@@ -115,10 +115,10 @@ def test_lazy_digit_margin_gate():
     pins (a) the gate predicate's boundary arithmetic, (b) lazy_digits=True
     with a healthy margin at the most extreme constructible configuration,
     and (c) that >59-bit contexts are indeed rejected upstream."""
-    from gemini_seal_tpu import (
+    from gemini_seal import (
         EncryptionParameters, SchemeType, SecLevelType, SealContext,
     )
-    from gemini_seal_tpu.ops.keyswitch import KeySwitchPlan
+    from gemini_seal.ops.keyswitch import KeySwitchPlan
 
     # (a) predicate boundary: 17 bundles at 61-bit primes overflows, 16 do
     # not; canonical margin would be 4x wider

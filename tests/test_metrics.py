@@ -1,7 +1,7 @@
 """Ciphertext health metrics (SURVEY §5 observability; noise budget
 reference: decryptor.cpp:269-325)."""
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -15,7 +15,7 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.metrics import inspect
+from gemini_seal.metrics import inspect
 
 SEED = tuple(range(41, 49))
 

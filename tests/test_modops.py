@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gemini_seal_tpu.ops import modops
-from gemini_seal_tpu.modulus import Modulus
+from gemini_seal.ops import modops
+from gemini_seal.modulus import Modulus
 
 RNG = np.random.default_rng(1234)
 P_LIST = [0xFFFFFFFFFFC0001, 0x7E00001, (1 << 59) - 55]  # incl. a 59-bit prime-ish
@@ -101,12 +101,12 @@ def test_trace_counters():
     """
     import jax
 
-    from gemini_seal_tpu import (
+    from gemini_seal import (
         BatchEncoder, CoeffModulus, EncryptionParameters, Encryptor,
         KeyGenerator, PlainModulus, SchemeType, SecLevelType, SealContext,
     )
-    from gemini_seal_tpu.models.pipelines import build_bfv_mul_relin
-    from gemini_seal_tpu.ops import modops, ntt
+    from gemini_seal.models.pipelines import build_bfv_mul_relin
+    from gemini_seal.ops import modops, ntt
 
     assert ntt.TRACE_COUNTS is None
     assert modops.TRACE_MACS is None

@@ -11,7 +11,7 @@ import math
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     EncryptionParameters,
@@ -19,8 +19,8 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.utils import mplimb
-from gemini_seal_tpu.utils.rns import RNSBase
+from gemini_seal.utils import mplimb
+from gemini_seal.utils.rns import RNSBase
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +102,7 @@ def ckks():
 
 def _decode_slow(encoder, ctx, plain, as_complex=False):
     """The round-2 per-coefficient decode (oracle-verified) as the model."""
-    from gemini_seal_tpu.ops.ntt import ntt_inverse
+    from gemini_seal.ops.ntt import ntt_inverse
 
     cd = ctx.get_context_data(plain.parms_id)
     n = cd.parms.poly_modulus_degree
@@ -208,9 +208,9 @@ def test_encode_at_base_high_scale_matches_ct_base(ckks):
     the SAME rounded integers encode() produces — including the >52-bit
     mantissa-split regime (native fast path with a fresh pow2 table)."""
     ctx, encoder = ckks
-    from gemini_seal_tpu.modulus import Modulus
-    from gemini_seal_tpu.ops.keyswitch import KeySwitchPlan
-    from gemini_seal_tpu.ops.ntt import ntt_inverse
+    from gemini_seal.modulus import Modulus
+    from gemini_seal.ops.keyswitch import KeySwitchPlan
+    from gemini_seal.ops.ntt import ntt_inverse
 
     plan = KeySwitchPlan(ctx, ctx.first_parms_id)
     ext_mods = [Modulus(p) for p in plan.ext_moduli]
@@ -275,7 +275,7 @@ def test_encode_batch_matches_per_vector(ckks):
 def test_crt_centered_double_native_bit_exact(base):
     """The fused native decode ladder (gst_crt_centered_double) is
     bit-exact with the limb-plane path on random and extreme residues."""
-    from gemini_seal_tpu.utils import native as _native
+    from gemini_seal.utils import native as _native
 
     if not _native.available():
         pytest.skip("native module not built")

@@ -1,4 +1,4 @@
-"""Quantified noise accounting (VERDICT r1 item 4).
+"""Quantified noise accounting.
 
 Every "decrypts identically" shortcut in the framework has a noise cost;
 these tests MEASURE it and pin a bound, instead of asserting decrypt
@@ -24,7 +24,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     BatchEncoder,
     CKKSEncoder,
     CoeffModulus,
@@ -39,8 +39,8 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu import serialization as ser
-from gemini_seal_tpu.ciphertext import Ciphertext
+from gemini_seal import serialization as ser
+from gemini_seal.ciphertext import Ciphertext
 
 ORACLE = "/tmp/seal_oracle"
 SEED = tuple(range(61, 69))
@@ -125,7 +125,7 @@ def test_fused_moddown_noise_cost():
     rk = kg.relin_keys()
     scale = 2.0 ** 30
 
-    from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale
+    from gemini_seal.models.pipelines import build_ckks_mul_relin_rescale
 
     vals = [0.5, -1.0, 2.0, 0.25, 1.5, -0.125]
     ct = enc.encrypt(encoder.encode(vals, scale))

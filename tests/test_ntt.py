@@ -11,9 +11,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gemini_seal_tpu.ops import ntt as ntt_mod
-from gemini_seal_tpu.ops.ntt import build_ntt_tables, ntt_forward, ntt_inverse
-from gemini_seal_tpu.utils.numth import get_primes
+from gemini_seal.ops import ntt as ntt_mod
+from gemini_seal.ops.ntt import build_ntt_tables, ntt_forward, ntt_inverse
+from gemini_seal.utils.numth import get_primes
 
 P60 = 0xFFFFFFFFFFC0001
 
@@ -116,8 +116,8 @@ def test_negacyclic_convolution_theorem():
     b = rng.integers(0, p, size=n, dtype=np.uint64)
     fa = ntt_forward(jnp.asarray(a[None]), t)
     fb = ntt_forward(jnp.asarray(b[None]), t)
-    from gemini_seal_tpu.ops import modops
-    from gemini_seal_tpu.modulus import Modulus
+    from gemini_seal.ops import modops
+    from gemini_seal.modulus import Modulus
 
     r0, r1, _ = Modulus(p).const_ratio
     prod = modops.mul_mod(fa, fb, jnp.uint64(p), jnp.uint64(r0), jnp.uint64(r1))
@@ -183,9 +183,9 @@ def test_native_and_pure_paths_bit_identical(monkeypatch):
     """The native C++ host transform and the pure vectorized path must
     agree bit for bit in ALL four variants (the host suite otherwise
     exercises only whichever path is available)."""
-    from gemini_seal_tpu.modulus import CoeffModulus
-    from gemini_seal_tpu.ops import ntt as ntt_mod
-    from gemini_seal_tpu.utils import native
+    from gemini_seal.modulus import CoeffModulus
+    from gemini_seal.ops import ntt as ntt_mod
+    from gemini_seal.utils import native
 
     if not native.available():
         pytest.skip("native module unavailable")
@@ -214,8 +214,8 @@ def test_fused_stage_pairs_bit_identical(log_n):
     log_n exercises the fused inverse pair that carries the n^{-1} fold)."""
     import jax
 
-    from gemini_seal_tpu.modulus import CoeffModulus
-    from gemini_seal_tpu.ops import ntt as ntt_mod
+    from gemini_seal.modulus import CoeffModulus
+    from gemini_seal.ops import ntt as ntt_mod
 
     n = 1 << log_n
     mods = CoeffModulus.create(max(n, 1024), [50, 40, 58])
@@ -245,3 +245,40 @@ def test_fused_stage_pairs_bit_identical(log_n):
     for depth in (2, 3, 4):
         for k in got[depth]:
             assert np.array_equal(got[1][k], got[depth][k]), (depth, k)
+
+
+def test_default_fuse_depth_round_trips(monkeypatch):
+    """The default depth follows the platform: 3 on the GPU (the k measured
+    fastest on the headline step, PERF.md's k sweep), 2 on the CPU and on
+    the host plane; an int in FUSE_STAGES overrides both.  At the default
+    the device transforms still invert each other exactly, with the lazy
+    forward output in [0, 4p)."""
+    import jax
+    import jax.numpy as jnp
+
+    from gemini_seal.modulus import CoeffModulus
+
+    assert ntt_mod.FUSE_STAGES is None
+    host, dev = np.zeros(4, np.uint64), jnp.zeros(4, jnp.uint64)
+    assert ntt_mod.fuse_depth(host) == 2
+    assert ntt_mod.fuse_depth(dev) == 2
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert ntt_mod.fuse_depth(dev) == 3
+    assert ntt_mod.fuse_depth(host) == 2
+    monkeypatch.setattr(ntt_mod, "FUSE_STAGES", 4)
+    assert ntt_mod.fuse_depth(dev) == ntt_mod.fuse_depth(host) == 4
+    monkeypatch.undo()
+
+    log_n = 10
+    mods = CoeffModulus.create(1 << log_n, [50, 40, 58])
+    tabs = ntt_mod.build_ntt_tables(log_n, mods)
+    rng = np.random.default_rng(5)
+    x = np.stack([rng.integers(0, m.value, (2, 1 << log_n), dtype=np.uint64)
+                  for m in mods], axis=1)
+    lazy = np.asarray(jax.jit(lambda v: ntt_mod.ntt_forward_lazy(v, tabs))(x))
+    p = np.array([m.value for m in mods], dtype=np.uint64)[:, None]
+    assert np.all(lazy < 4 * p)
+    fwd = np.asarray(jax.jit(lambda v: ntt_mod.ntt_forward(v, tabs))(x))
+    assert np.array_equal(fwd, lazy % p)
+    back = np.asarray(jax.jit(lambda v: ntt_mod.ntt_inverse(v, tabs))(fwd))
+    assert np.array_equal(back, x)

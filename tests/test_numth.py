@@ -5,8 +5,8 @@ e.g. get_primes' descending scan and the minimal primitive root of the
 60-bit NTT test prime (tests/seal/util/ntt.cpp uses 0xffffffffffc0001).
 """
 
-from gemini_seal_tpu.utils import numth
-from gemini_seal_tpu.modulus import CoeffModulus, Modulus, PlainModulus, SecLevelType
+from gemini_seal.utils import numth
+from gemini_seal.modulus import CoeffModulus, Modulus, PlainModulus, SecLevelType
 
 
 def test_is_prime():

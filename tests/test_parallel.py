@@ -12,7 +12,7 @@ import pytest
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     EncryptionParameters,
@@ -23,11 +23,11 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.models.pipelines import (
+from gemini_seal.models.pipelines import (
     build_ckks_mul_relin_rescale,
     build_ckks_train_step,
 )
-from gemini_seal_tpu.parallel.mesh import (
+from gemini_seal.parallel.mesh import (
     ciphertext_sharding,
     key_sharding,
     make_he_mesh,

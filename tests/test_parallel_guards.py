@@ -17,7 +17,7 @@ import pytest
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     EncryptionParameters,
@@ -28,9 +28,9 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale
-from gemini_seal_tpu.parallel.comm import assert_collectives, collective_stats
-from gemini_seal_tpu.parallel.mesh import make_he_mesh
+from gemini_seal.models.pipelines import build_ckks_mul_relin_rescale
+from gemini_seal.parallel.comm import assert_collectives, collective_stats
+from gemini_seal.parallel.mesh import make_he_mesh
 
 SEED = tuple(range(51, 59))
 
@@ -107,7 +107,7 @@ def test_dp_sharded_zero_collectives():
     da = jax.device_put(a, ct_sh)
     dk = jax.device_put(rk_data, key_sh)
     stats = collective_stats(step.lower(da, da, dk).compile().as_text())
-    assert stats.total_bytes == 0, f"unexpected ICI traffic: {stats}"
+    assert stats.total_bytes == 0, f"unexpected collective traffic: {stats}"
 
 
 @needs8
@@ -115,7 +115,7 @@ def test_realistic_shape_dp_limb_sharded_bit_exact():
     """(dp=2, limb=4) mesh at a REAL serving shape: N=4096, L=8 working
     limbs + nsp=2 special primes, batch 8 — shard/bundle-boundary bugs and
     GSPMD partitioning decisions change with shape, so toy-shape passes do
-    not cover this (VERDICT r1 weak point #2)."""
+    not cover this."""
     ctx, kg = make_ctx(4096, [30] * 10, nsp=2)
     cd = ctx.first_context_data()
     assert len(cd.parms.coeff_modulus) == 8
@@ -140,10 +140,10 @@ def test_realistic_shape_dp_limb_sharded_bit_exact():
 
 
 def test_cnn_dp_sharded_zero_collectives_and_bit_exact():
-    """The whole encrypted CNN under pure ciphertext-batch DP: zero ICI
-    bytes in the compiled program, rows identical to the unsharded step
+    """The whole encrypted CNN under pure ciphertext-batch DP: zero
+    collective bytes in the compiled program, rows identical to the unsharded step
     (encrypted inference scale-out is a free axis)."""
-    from gemini_seal_tpu.models.pipelines import build_ckks_cnn
+    from gemini_seal.models.pipelines import build_ckks_cnn
 
     ctx, kg = make_ctx(256, [50, 40, 40, 40, 50])
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -192,7 +192,7 @@ def test_cnn_dp_sharded_zero_collectives_and_bit_exact():
     dr = jax.device_put(rk_data, key_sh)
     compiled = step.lower(da, dr, *dks).compile()
     stats = collective_stats(compiled.as_text())
-    assert stats.total_bytes == 0, f"unexpected ICI traffic: {stats}"
+    assert stats.total_bytes == 0, f"unexpected collective traffic: {stats}"
 
     out = np.asarray(compiled(da, dr, *dks))
     want = np.asarray(jax.jit(lambda c, r, *gs: fn(c, gs, r))(a, rk_data,
@@ -203,9 +203,9 @@ def test_cnn_dp_sharded_zero_collectives_and_bit_exact():
 @needs8
 def test_matmul_dp_sharded_zero_collectives_and_bit_exact():
     """The encrypted matrix product under pure ciphertext-batch DP:
-    zero ICI bytes (batched matmul serving scales out freely) and rows
+    zero interconnect bytes (batched matmul serving scales out freely) and rows
     identical to the unsharded program."""
-    from gemini_seal_tpu.models.pipelines import build_ckks_matmul_square
+    from gemini_seal.models.pipelines import build_ckks_matmul_square
 
     ctx, kg = make_ctx(32, [50, 40, 40, 40, 40, 50])
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -241,7 +241,7 @@ def test_matmul_dp_sharded_zero_collectives_and_bit_exact():
     dr = jax.device_put(rk_data, key_sh)
     compiled = step.lower(da, db, dg, dr).compile()
     stats = collective_stats(compiled.as_text())
-    assert stats.total_bytes == 0, f"unexpected ICI traffic: {stats}"
+    assert stats.total_bytes == 0, f"unexpected collective traffic: {stats}"
 
     out = np.asarray(compiled(da, db, dg, dr))
     want = np.asarray(jax.jit(fn)(a, b, gk_stack, rk_data))
@@ -254,7 +254,7 @@ def test_matmul_limb_sharded_bit_exact():
     real reduction collectives (no silent de-parallelization into a
     giant all-gather of the digit tensors) and the rows must stay
     bit-exact vs the unsharded program."""
-    from gemini_seal_tpu.models.pipelines import build_ckks_matmul_square
+    from gemini_seal.models.pipelines import build_ckks_matmul_square
 
     ctx, kg = make_ctx(32, [30] * 9)
     cd = ctx.first_context_data()

@@ -8,7 +8,7 @@ import pytest
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     EncryptionParameters,
@@ -18,10 +18,10 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale
-from gemini_seal_tpu.ops.keyswitch import KeySwitchPlan, switch_key
-from gemini_seal_tpu.parallel.comm import collective_stats
-from gemini_seal_tpu.parallel.pipeline_csp import (
+from gemini_seal.models.pipelines import build_ckks_mul_relin_rescale
+from gemini_seal.ops.keyswitch import KeySwitchPlan, switch_key
+from gemini_seal.parallel.comm import collective_stats
+from gemini_seal.parallel.pipeline_csp import (
     ckks_mul_relin_rescale_coeff_sharded,
     switch_key_coeff_sharded,
 )
@@ -143,8 +143,8 @@ def test_rotate_coeff_sharded_bit_exact_and_profile():
     _galois_block_plan), so the profile is the switch's all_to_alls plus
     AT MOST one collective-permute, and rows are bit-exact vs
     Evaluator.apply_galois."""
-    from gemini_seal_tpu import Evaluator
-    from gemini_seal_tpu.parallel.pipeline_csp import (
+    from gemini_seal import Evaluator
+    from gemini_seal.parallel.pipeline_csp import (
         ckks_rotate_coeff_sharded,
     )
 
@@ -186,8 +186,8 @@ def test_rotate_coeff_sharded_bit_exact_and_profile():
 def test_rotate_many_coeff_sharded_hoisted_bit_exact():
     """Hoisted k-rotation bundle under coefficient sharding, bit-exact vs
     Evaluator.apply_galois_many."""
-    from gemini_seal_tpu import Ciphertext, Evaluator
-    from gemini_seal_tpu.parallel.pipeline_csp import (
+    from gemini_seal import Ciphertext, Evaluator
+    from gemini_seal.parallel.pipeline_csp import (
         ckks_rotate_many_coeff_sharded,
     )
 

@@ -9,7 +9,7 @@ closest is the evaluator round-trip suite (tests/seal/evaluator.cpp).
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     BatchEncoder,
     CoeffModulus,
@@ -23,7 +23,7 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.models.pipelines import (
+from gemini_seal.models.pipelines import (
     build_bfv_mul_relin,
     build_ckks_mul_relin_rescale,
     build_ckks_rotate,
@@ -142,7 +142,7 @@ def test_bfv_mul_relin_matches_host():
 
     # and it decrypts to the product
     dec = Decryptor(ctx, kg.secret_key)
-    from gemini_seal_tpu.ciphertext import Ciphertext
+    from gemini_seal.ciphertext import Ciphertext
 
     out = be.decode(
         dec.decrypt(Ciphertext(dev, host.parms_id, False, host.scale))
@@ -171,7 +171,7 @@ def test_ckks_train_step_decrypts():
     step = jax.jit(build_ckks_train_step(ctx, rotate_steps=1))
     out = np.asarray(step(np.asarray(ct.data), np.asarray(ct.data), rk_data, gk_data))
 
-    from gemini_seal_tpu.ciphertext import Ciphertext
+    from gemini_seal.ciphertext import Ciphertext
 
     next_id = ctx.first_context_data().next_context_data.parms_id
     # step computes sq + rot(sq): expected slot i = v_i^2 + v_{i+1}^2
@@ -218,7 +218,7 @@ def test_hoisted_rotate_many():
             assert abs(g - w) < 1e-4, (s, got[:4], want[:4])
 
     # jitted pipeline
-    from gemini_seal_tpu.models.pipelines import build_ckks_rotate_many
+    from gemini_seal.models.pipelines import build_ckks_rotate_many
 
     keys_stack = np.stack([
         np.stack([np.asarray(pk.data.data) for pk in gk.key(elt)])
@@ -260,7 +260,7 @@ def test_deep_poly_eval():
     """Config-5-style deep pipeline: degree-4 polynomial, 3 levels of
     mult+relin+rescale, plaintext linear combination, one rotation-sum."""
     import jax
-    from gemini_seal_tpu.models.pipelines import build_ckks_poly_eval
+    from gemini_seal.models.pipelines import build_ckks_poly_eval
 
     parms = EncryptionParameters(SchemeType.CKKS)
     n = 512
@@ -293,7 +293,7 @@ def test_deep_poly_eval():
 
     out = np.asarray(jax.jit(step)(np.asarray(ct.data), rk_data, gk_stack))
 
-    from gemini_seal_tpu.ciphertext import Ciphertext
+    from gemini_seal.ciphertext import Ciphertext
 
     got = encoder.decode(dec.decrypt(Ciphertext(out, deep_id, True, out_scale)))
 
@@ -398,8 +398,8 @@ def test_fused_rescale_decrypts_equal():
     ct = enc.encrypt(encoder.encode(vals, scale))
     rk_data = np.stack([np.asarray(pk.data.data) for pk in rk.key(2)])
 
-    from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale
-    from gemini_seal_tpu.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_mul_relin_rescale
+    from gemini_seal.ciphertext import Ciphertext
 
     seq = jax.jit(build_ckks_mul_relin_rescale(ctx))
     fus = jax.jit(build_ckks_mul_relin_rescale(ctx, fused=True))
@@ -422,8 +422,8 @@ def test_hoisted_matvec():
     """Diagonal-method encrypted matvec with hoisted rotations computes
     M @ x (slot-wise) correctly."""
     import jax
-    from gemini_seal_tpu.models.pipelines import build_ckks_matvec
-    from gemini_seal_tpu.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_matvec
+    from gemini_seal.ciphertext import Ciphertext
 
     ctx, kg = ckks_setup(n=256, bits=(50, 40, 50))
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -485,9 +485,9 @@ def test_bfv_mul_relin_modswitch_pipeline():
     """The fused BFV config-3 pipeline: exact-chain mode is bit-exact vs
     the host evaluator; fused multi-drop mode decrypts identically."""
     import jax
-    from gemini_seal_tpu import Plaintext
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_bfv_mul_relin_modswitch
+    from gemini_seal import Plaintext
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_bfv_mul_relin_modswitch
 
     ctx, kg = bfv_setup()
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -517,7 +517,7 @@ def test_bfv_mul_relin_modswitch_pipeline():
 
 def test_bfv_rotate_many_hoisted_matches_host():
     import jax
-    from gemini_seal_tpu.models.pipelines import build_bfv_rotate_many
+    from gemini_seal.models.pipelines import build_bfv_rotate_many
 
     ctx, kg = bfv_setup(t=PlainModulus.batching(64, 20).value)
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -545,8 +545,8 @@ def test_fused_dense_layer():
     """build_ckks_dense_layer: one jitted program computing
     act(M @ x + b) == the eager ex9 flow (matvec, rescale, bias, square)."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_dense_layer
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_dense_layer
 
     ctx, kg = ckks_setup(n=256, bits=(50, 40, 40, 50))
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -601,8 +601,8 @@ def test_bfv_hoisted_matvec():
     decrypts to M @ x over the slot rows, matching the eager
     rotate/multiply_plain/add composition."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_bfv_matvec
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_bfv_matvec
 
     n = 64
     t = PlainModulus.batching(n, 17)
@@ -655,8 +655,8 @@ def test_ckks_mlp_two_layers():
     """Two chained dense layers (square activation then linear) as one
     program: y = M2 @ (act(M1 @ x + b1)) + b2."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_mlp
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_mlp
 
     ctx, kg = ckks_setup(n=512, bits=(50, 40, 40, 40, 50))
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -742,7 +742,7 @@ def test_decrypt_batch_matches_per_ct():
     bctx, bkg = bfv_setup(n=64, t=257)
     benc = Encryptor(bctx, public_key=bkg.public_key())
     bdec = Decryptor(bctx, bkg.secret_key)
-    from gemini_seal_tpu import Plaintext
+    from gemini_seal import Plaintext
     bcts = [benc.encrypt(Plaintext.from_hex(h)) for h in ("3x^2 + 2", "5x^1 + 7", "1")]
     bbatch = np.stack([np.asarray(ct.data) for ct in bcts])
     bouts = bdec.decrypt_batch(bbatch, bcts[0].parms_id, False)
@@ -755,8 +755,8 @@ def test_ckks_conv2d():
     numpy direct convolution (masked diagonals turn the cyclic slot
     rotation into true zero padding)."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_conv2d
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_conv2d
 
     ctx, kg = ckks_setup(n=256, bits=(50, 40, 40, 50))
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -815,8 +815,8 @@ def test_ckks_logreg():
     """build_ckks_logreg: encrypted sigmoid(w . x + b) head matches the
     plain degree-3 approximation 0.5 + 0.197 z - 0.004 z^3."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_logreg
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_logreg
 
     ctx, kg = ckks_setup(n=256, bits=(50, 40, 40, 40, 40, 50))
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -857,8 +857,8 @@ def test_bsgs_matvec():
     the diagonal method exactly up to the fused mod-down's sub-noise
     interpolation rounding)."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import (build_ckks_matvec,
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import (build_ckks_matvec,
                                                   build_ckks_matvec_bsgs)
 
     ctx, kg = ckks_setup(n=512, bits=(50, 40, 50))
@@ -915,8 +915,8 @@ def test_bsgs_matvec_sparse_groups():
     """BSGS with a sparse diagonal set (missing baby/giant combinations,
     no step-0 diagonal) still computes the right linear map."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_matvec_bsgs
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_matvec_bsgs
 
     ctx, kg = ckks_setup(n=512, bits=(50, 40, 50))
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -959,8 +959,8 @@ def test_ckks_cnn():
     readout — the whole encrypted CNN as one program matches the numpy
     forward pass."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_cnn
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_cnn
 
     ctx, kg = ckks_setup(
         n=1024, bits=(50, 40, 40, 40, 40, 40, 40, 50)
@@ -1052,8 +1052,8 @@ def test_ckks_conv2d_multichannel():
     """Multi-channel conv [oc=2, ic=2, 3, 3] over channels-blocked slots
     == numpy conv per (oc, ic) pair summed, with zero padding."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_conv2d_mc
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_conv2d_mc
 
     ctx, kg = ckks_setup(n=512, bits=(50, 40, 50))
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -1104,8 +1104,8 @@ def test_ckks_cnn_multichannel():
     """CNN with a 1->2 channel conv then a dense readout over the blocked
     output matches numpy (periodic chaining with oc > ic)."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_cnn
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_cnn
 
     ctx, kg = ckks_setup(n=1024, bits=(50, 40, 40, 40, 50))
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -1174,8 +1174,8 @@ def test_strided_dense_readout():
     strided_dense_diagonals (pooling absorbed into the readout's
     diagonals, negative-equivalent steps normalized for BSGS)."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import (build_ckks_cnn,
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import (build_ckks_cnn,
                                                   strided_dense_diagonals)
 
     ctx, kg = ckks_setup(n=1024, bits=(50, 40, 40, 40, 50))
@@ -1237,8 +1237,8 @@ def test_ckks_logreg_train_step():
     encrypted) == the numpy update with the degree-3 sigmoid, and the
     output w' is replicated per block at the input scale (self-similar)."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_logreg_train_step
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_logreg_train_step
 
     ctx, kg = ckks_setup(n=512, bits=(50,) + (40,) * 7 + (50,))
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -1292,8 +1292,8 @@ def test_ckks_matmul_square():
     decrypts to A @ B; the whole product is one jitted program consuming
     3 levels."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_matmul_square
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_matmul_square
 
     d = 4
     n = 2 * d * d                       # slots = d^2
@@ -1353,8 +1353,8 @@ def test_ckks_matmul_square_multihead():
     wraps split into in-block + one-block-lower rotations) decrypts to
     every head's A_h @ B_h, still 3 levels."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_matmul_square
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_matmul_square
 
     d, H = 4, 4
     n = 2 * H * d * d                   # slots = H * d^2
@@ -1394,8 +1394,8 @@ def test_ckks_inverse():
     """Goldschmidt reciprocal: x_m ~ 1/a with quadratic convergence for
     slot values in (0, 2); one level per iteration."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_inverse
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_inverse
 
     ctx, kg = ckks_setup(n=256, bits=(50, 40, 40, 40, 40, 50))
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -1430,8 +1430,8 @@ def test_ckks_sign_and_relu():
     outputs match the plain composite curve (the approximation target)
     and the true sign/ReLU outside the resolution gap."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import (
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import (
         build_ckks_relu, build_ckks_sign, sign_composite_reference)
 
     bits = (50,) + (40,) * 13 + (50,)
@@ -1474,8 +1474,8 @@ def test_ckks_max():
     (ones-plaintext trick), result matches np.maximum outside the sign
     gap and stays between a and b inside it."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_max
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_max
 
     bits = (50,) + (40,) * 13 + (50,)
     ctx, kg = ckks_setup(n=256, bits=bits)
@@ -1508,8 +1508,8 @@ def test_ckks_rsqrt_and_sqrt():
     """Newton inverse square root and sqrt(a) = a * rsqrt(a): quadratic
     convergence on (0, 2), 4 levels per iteration + 1 for the sqrt."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import (build_ckks_rsqrt,
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import (build_ckks_rsqrt,
                                                   build_ckks_sqrt)
 
     bits = (50,) + (40,) * 14 + (50,)
@@ -1549,8 +1549,8 @@ def test_ckks_rotate_many_prepermuted_keys_decrypt_equal():
     to the same slots as the default hoisted path (not bit-identical:
     the mod-down base-conversion lift is not odd-symmetric)."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import (
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import (
         build_ckks_rotate_many, prepermute_galois_stack)
 
     ctx, kg = ckks_setup()
@@ -1588,8 +1588,8 @@ def test_bfv_rotate_many_prepermuted_keys_decrypt_equal():
     """BFV variant: the final signed coeff-domain permutation reproduces
     the default hoisted path's exact decrypted slots."""
     import jax
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import (
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import (
         build_bfv_rotate_many, prepermute_galois_stack)
 
     ctx, kg = bfv_setup(t=PlainModulus.batching(64, 20).value)

@@ -2,7 +2,7 @@
 tests/seal/util/polyarith.cpp style — exact expected values, including
 multi-word coefficients)."""
 
-from gemini_seal_tpu.utils.polyarith import (
+from gemini_seal.utils.polyarith import (
     add_poly,
     multiply_poly,
     negate_poly,

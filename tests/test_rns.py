@@ -12,11 +12,11 @@ a strictly stronger check with the same coverage.
 import numpy as np
 import pytest
 
-from gemini_seal_tpu.modulus import Modulus
-from gemini_seal_tpu.ops.dyadic import LimbConstants
-from gemini_seal_tpu.ops.ntt import build_ntt_tables, ntt_forward, ntt_inverse
-from gemini_seal_tpu.ops import rnsops
-from gemini_seal_tpu.ops.rnsops import (
+from gemini_seal.modulus import Modulus
+from gemini_seal.ops.dyadic import LimbConstants
+from gemini_seal.ops.ntt import build_ntt_tables, ntt_forward, ntt_inverse
+from gemini_seal.ops import rnsops
+from gemini_seal.ops.rnsops import (
     DeviceRNSTool,
     decrypt_scale_and_round,
     divide_and_round_q_last,
@@ -27,8 +27,8 @@ from gemini_seal_tpu.ops.rnsops import (
     fastbconv_sk,
     sm_mrq,
 )
-from gemini_seal_tpu.utils.numth import get_primes
-from gemini_seal_tpu.utils.rns import BaseConverter, RNSBase, RNSTool
+from gemini_seal.utils.numth import get_primes
+from gemini_seal.utils.rns import BaseConverter, RNSBase, RNSTool
 
 RNG = np.random.default_rng(12345)
 
@@ -274,7 +274,7 @@ def test_divide_and_round_q_last_ntt_matches_power_basis():
     want = np.asarray(divide_and_round_q_last(x, tool))
     x_ntt = np.asarray(ntt_forward(x, tables))
     got_ntt = divide_and_round_q_last_ntt(x_ntt, tool, tables)
-    from gemini_seal_tpu.ops.rnsops import _slice_tables
+    from gemini_seal.ops.rnsops import _slice_tables
     got = np.asarray(ntt_inverse(got_ntt, _slice_tables(tables, 0, len(q_vals) - 1)))
     np.testing.assert_array_equal(got, want)
 
@@ -282,10 +282,10 @@ def test_divide_and_round_q_last_ntt_matches_power_basis():
 def test_divide_and_round_multi():
     """Fused multi-level drop == one rounded division by Q_D up to the
     bounded CRT-interpolation excess (< |D|), vs the exact integer model."""
-    from gemini_seal_tpu.context import SealContext
-    from gemini_seal_tpu.params import EncryptionParameters, SchemeType
-    from gemini_seal_tpu.modulus import CoeffModulus, PlainModulus, SecLevelType
-    from gemini_seal_tpu.ops.rnsops import MultiDropPlan, divide_and_round_multi
+    from gemini_seal.context import SealContext
+    from gemini_seal.params import EncryptionParameters, SchemeType
+    from gemini_seal.modulus import CoeffModulus, PlainModulus, SecLevelType
+    from gemini_seal.ops.rnsops import MultiDropPlan, divide_and_round_multi
 
     parms = EncryptionParameters(SchemeType.BFV)
     n = 32
@@ -319,13 +319,13 @@ def test_divide_and_round_multi():
 
 
 def test_multi_drop_decrypts_like_sequential():
-    from gemini_seal_tpu import (BatchEncoder, Decryptor, Encryptor,
+    from gemini_seal import (BatchEncoder, Decryptor, Encryptor,
                                  Evaluator, KeyGenerator)
-    from gemini_seal_tpu.context import SealContext
-    from gemini_seal_tpu.params import EncryptionParameters, SchemeType
-    from gemini_seal_tpu.modulus import CoeffModulus, PlainModulus, SecLevelType
-    from gemini_seal_tpu.ops.rnsops import MultiDropPlan, divide_and_round_multi
-    from gemini_seal_tpu.ciphertext import Ciphertext
+    from gemini_seal.context import SealContext
+    from gemini_seal.params import EncryptionParameters, SchemeType
+    from gemini_seal.modulus import CoeffModulus, PlainModulus, SecLevelType
+    from gemini_seal.ops.rnsops import MultiDropPlan, divide_and_round_multi
+    from gemini_seal.ciphertext import Ciphertext
 
     parms = EncryptionParameters(SchemeType.BFV)
     n = 64

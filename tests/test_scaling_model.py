@@ -1,9 +1,8 @@
-"""Guards for the multi-chip scaling prediction (tools/scaling_model.py
--> PERF.md efficiency table, BASELINE's >=80% deliverable).
+"""Guards for the collective-byte model (tools/scaling_model.py).
 
-The prediction's byte formulas must match the compiled HLO of the
-shipped schedules at the virtual-mesh-measurable shape — otherwise the
-PERF.md table silently drifts from the code it claims to describe.
+The model's byte formulas must match the compiled HLO of the shipped
+schedules at the virtual-mesh-measurable shape — otherwise the byte
+table silently drifts from the code it claims to describe.
 """
 
 import sys
@@ -17,7 +16,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     EncryptionParameters,
@@ -27,8 +26,8 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.ops.keyswitch import KeySwitchPlan
-from gemini_seal_tpu.parallel.comm import collective_stats
+from gemini_seal.ops.keyswitch import KeySwitchPlan
+from gemini_seal.parallel.comm import collective_stats
 
 needs8 = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 needs4 = pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 devices")
@@ -50,27 +49,6 @@ def _setup(n=4096, n_primes=10, nsp=2):
     return ctx, a, kdata
 
 
-def test_prediction_marks_80pct_line():
-    """The published table's qualitative claims: the explicit schedule
-    holds >= 80% through 8 chips on both configs; GSPMD falls below 80%
-    at 8 chips on config 4 (the structural reason the explicit schedule
-    exists); coeff-sharded is C-independent (bytes ~ 1/C)."""
-    from scaling_model import CONFIGS, SCHEDULES, efficiency
-
-    c4 = CONFIGS["config 4 (CKKS mul+relin+rescale, N=16384)"]
-    c5 = CONFIGS["config 5 (deep CKKS poly4+rot, N=32768)"]
-    expl = SCHEDULES["explicit one-gather"]
-    gspmd = SCHEDULES["GSPMD (XLA-chosen)"]
-    csp = SCHEDULES["coeff-sharded (pipeline_csp)"]
-    for cfg in (c4, c5):
-        for C in (2, 4, 8):
-            assert efficiency(cfg, expl, C) >= 0.80
-    assert efficiency(c4, gspmd, 8) < 0.80
-    assert efficiency(c5, gspmd, 8) >= 0.80
-    e4 = [efficiency(c4, csp, C) for C in (2, 4, 8)]
-    assert max(e4) - min(e4) < 0.01  # 1/C bytes -> C-independent
-
-
 @needs4
 def test_explicit_bytes_formula_matches_hlo():
     """bytes_explicit == the compiled HLO's collective bytes, exactly:
@@ -78,7 +56,7 @@ def test_explicit_bytes_formula_matches_hlo():
     all-reduce (q_last broadcast) = b*(n_ct+2)*N*8."""
     from scaling_model import bytes_explicit
 
-    from gemini_seal_tpu.parallel.keyswitch_sp import (
+    from gemini_seal.parallel.keyswitch_sp import (
         ckks_mul_relin_rescale_limb_sharded,
     )
 
@@ -108,7 +86,7 @@ def test_csp_bytes_formula_matches_hlo():
     coeff-sharded step's HLO all_to_all result bytes within 10%."""
     from scaling_model import bytes_csp
 
-    from gemini_seal_tpu.parallel.pipeline_csp import (
+    from gemini_seal.parallel.pipeline_csp import (
         ckks_mul_relin_rescale_coeff_sharded,
     )
 
@@ -143,8 +121,8 @@ def test_gspmd_bytes_anchor():
     rather than silently invalidating the prediction."""
     from scaling_model import bytes_gspmd
 
-    from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale
-    from gemini_seal_tpu.parallel.mesh import make_he_mesh
+    from gemini_seal.models.pipelines import build_ckks_mul_relin_rescale
+    from gemini_seal.parallel.mesh import make_he_mesh
 
     batch = 8
     ctx, a, kdata = _setup()
@@ -174,8 +152,8 @@ def test_behz_bytes_formula_matches_hlo():
     target)."""
     from scaling_model import bytes_behz
 
-    from gemini_seal_tpu import BatchEncoder, PlainModulus
-    from gemini_seal_tpu.parallel.behz_sp import bfv_mul_relin_limb_sharded
+    from gemini_seal import BatchEncoder, PlainModulus
+    from gemini_seal.parallel.behz_sp import bfv_mul_relin_limb_sharded
 
     batch = 2
     parms = EncryptionParameters(SchemeType.BFV)
@@ -214,8 +192,8 @@ def test_gspmd_bfv_bytes_anchor():
     of the in-core BEHZ multiply+relin at the limb=4 anchor shape."""
     from scaling_model import bytes_gspmd_bfv
 
-    from gemini_seal_tpu import BatchEncoder, PlainModulus
-    from gemini_seal_tpu.models.pipelines import build_bfv_mul_relin
+    from gemini_seal import BatchEncoder, PlainModulus
+    from gemini_seal.models.pipelines import build_bfv_mul_relin
 
     batch = 2
     parms = EncryptionParameters(SchemeType.BFV)
@@ -246,23 +224,3 @@ def test_gspmd_bfv_bytes_anchor():
     want, _ = bytes_gspmd_bfv(batch, n_ct, nsp, N, 4)
     assert abs(stats.total_bytes - want) / want < 0.25, \
         (stats.total_bytes, want)
-
-
-def test_bfv_prediction_marks_80pct_line():
-    """Qualitative claims of the BFV rows: the explicit schedules hold
-    >= 80% through their feasible limb widths on configs 1/2/3; GSPMD
-    on config 2 falls below 80% already at 2 chips (the reason the
-    explicit one-gather rotate schedule exists)."""
-    from scaling_model import CONFIGS, SCHEDULES, efficiency
-
-    c1 = CONFIGS["config 1 (BFV mul+relin, N=4096)"]
-    c2 = CONFIGS["config 2 (BFV rotate_rows, N=8192)"]
-    c3 = CONFIGS["config 3 (BFV mul+relin+chain, N=8192)"]
-    behz = SCHEDULES["BEHZ five-gather (behz_sp)"]
-    expl = SCHEDULES["explicit one-gather"]
-    gspmd_bfv = SCHEDULES["GSPMD-BFV (XLA-chosen)"]
-    assert efficiency(c1, behz, 2) >= 0.80
-    for C in (2, 4):
-        assert efficiency(c2, expl, C) >= 0.80
-        assert efficiency(c3, behz, C) >= 0.80
-    assert efficiency(c2, gspmd_bfv, 2) < 0.80

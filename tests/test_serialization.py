@@ -9,7 +9,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CoeffModulus,
     Decryptor,
     EncryptionParameters,
@@ -21,7 +21,7 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu import serialization as ser
+from gemini_seal import serialization as ser
 
 ORACLE = "/tmp/seal_oracle"
 SEED = tuple(range(91, 99))
@@ -167,8 +167,8 @@ class TestPRNGParity:
         assert [int(x, 16) for x in ref.stdout.split()] == [int(v) for v in sk]
 
     def test_seeded_gaussian_bit_exact(self):
-        from gemini_seal_tpu.utils.blake2 import Blake2xbPRNG
-        from gemini_seal_tpu.utils.prng import sample_poly_normal
+        from gemini_seal.utils.blake2 import Blake2xbPRNG
+        from gemini_seal.utils.prng import sample_poly_normal
 
         mods = [m.value for m in CoeffModulus.create(64, [40, 40, 40])]
         mine = sample_poly_normal(Blake2xbPRNG(self.SEED), mods, 64).reshape(-1)
@@ -213,7 +213,7 @@ def test_seeded_ckks_symmetric_roundtrip():
     enc = Encryptor(ctx, secret_key=kg.secret_key)
     dec = Decryptor(ctx, kg.secret_key)
 
-    from gemini_seal_tpu import CKKSEncoder
+    from gemini_seal import CKKSEncoder
 
     encoder = CKKSEncoder(ctx)
     vals = [0.5, -1.25, 2.0]
@@ -322,7 +322,7 @@ def test_seeded_encryption_reproducible_with_pinned_seed():
 def test_native_framing_byte_identical():
     """The native runtime's SEALHeader framing (gst_native.cpp) must be
     byte-identical to the pure-Python path for both compression modes."""
-    from gemini_seal_tpu.utils import native
+    from gemini_seal.utils import native
 
     if not native.available():
         pytest.skip("native module not built")
@@ -392,7 +392,7 @@ def test_ckks_evaluate_here_decrypt_there(tmp_path):
 def test_native_unframe_rejects_malformed_total():
     """A crafted header with total < 16 must be rejected (the native path
     previously underflowed total-16 into a huge zlib source length)."""
-    from gemini_seal_tpu.utils import native
+    from gemini_seal.utils import native
 
     if not native.available():
         pytest.skip("native module not built")
@@ -405,12 +405,12 @@ def test_native_unframe_rejects_malformed_total():
 
 @pytest.mark.skipif(not os.path.exists(ORACLE), reason="oracle not built")
 def test_batch_slot_semantics_cross_implementation(tmp_path):
-    """Slot-LEVEL interop loop (VERDICT r1 item 5a): the reference batch-
+    """Slot-LEVEL interop loop: the reference batch-
     encodes (generator-3 map), we rotate with the generator-3 Galois
     element under THEIR key, and the reference decodes the result — slots
     must come back row-rotated by one.  Also: their batch plaintext decodes
     here, slot-for-slot, via BatchEncoder(compat_gen3=True)."""
-    from gemini_seal_tpu import BatchEncoder
+    from gemini_seal import BatchEncoder
 
     d = tmp_path / "o"
     d.mkdir()
@@ -644,7 +644,7 @@ def test_loader_rejects_corrupted_blobs_cleanly():
     ciphertext that silently passes validation."""
     import zlib
 
-    from gemini_seal_tpu import CKKSEncoder
+    from gemini_seal import CKKSEncoder
 
     parms = EncryptionParameters(SchemeType.CKKS)
     n = 64
@@ -722,7 +722,7 @@ def _fuzz_loader(load_fn, blob, rng, ok_errors, tolerate_decode=False):
 
 
 def test_kswitch_and_parms_loaders_reject_corruption():
-    """VERDICT r3 item 9: extend the round-3 ciphertext fuzz to the
+    """Extend the round-3 ciphertext fuzz to the
     kswitch-keys loader (relin + Galois), the parms loader, and the
     seed-compressed Serializable wrappers."""
     import zlib
@@ -769,7 +769,7 @@ def test_native_unframe_matches_python_fallback():
     design — so the corpus here is 3.5 frames.)"""
     import zlib
 
-    from gemini_seal_tpu.utils import native
+    from gemini_seal.utils import native
 
     if not native.available():
         pytest.skip("native module unavailable")

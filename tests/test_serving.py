@@ -4,7 +4,7 @@ SEAL-wire blobs out, with batch padding to the compiled size."""
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -15,9 +15,9 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu import serialization as ser
-from gemini_seal_tpu.models.pipelines import build_ckks_dense_layer
-from gemini_seal_tpu.models.serving import EncryptedComputeServer
+from gemini_seal import serialization as ser
+from gemini_seal.models.pipelines import build_ckks_dense_layer
+from gemini_seal.models.serving import EncryptedComputeServer
 
 SEED = tuple(range(41, 49))
 
@@ -90,7 +90,7 @@ def test_wire_to_wire_dense_layer():
 def test_wire_to_wire_cnn():
     """A full encrypted CNN (conv + square + BSGS dense readout) behind
     the serving endpoint: SEAL blobs in, class scores out."""
-    from gemini_seal_tpu.models.pipelines import build_ckks_cnn
+    from gemini_seal.models.pipelines import build_ckks_cnn
 
     parms = EncryptionParameters(SchemeType.CKKS)
     n = 1024
@@ -163,8 +163,8 @@ def test_wire_to_wire_cnn():
 def test_wire_to_wire_matmul_pairs():
     """Two-operand endpoint: (A, B) blob pairs in -> encrypted d x d
     matrix products out (n_inputs=2 stacks one batch per operand)."""
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.pipelines import build_ckks_matmul_square
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.pipelines import build_ckks_matmul_square
 
     d, n = 4, 32
     parms = EncryptionParameters(SchemeType.CKKS)
@@ -211,7 +211,7 @@ def test_wire_to_wire_matmul_pairs():
 def test_multi_operand_rejects_bare_blob():
     """A bare bytes blob on an n_inputs=2 server must be rejected with an
     actionable error (not exploded into per-byte ints by tuple())."""
-    from gemini_seal_tpu.models.pipelines import build_ckks_matmul_square
+    from gemini_seal.models.pipelines import build_ckks_matmul_square
 
     d, n = 4, 32
     parms = EncryptionParameters(SchemeType.CKKS)

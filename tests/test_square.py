@@ -6,7 +6,7 @@ square is the same convolution with 2*c0*c1 = c0*c1 + c1*c0
 import numpy as np
 import pytest
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder,
     CoeffModulus,
     Decryptor,
@@ -19,7 +19,7 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.models.device_evaluator import DeviceEvaluator
+from gemini_seal.models.device_evaluator import DeviceEvaluator
 
 SEED = tuple(range(41, 49))
 
@@ -110,7 +110,7 @@ def test_pipeline_ckks_square_bit_exact(ckks):
     import jax
 
     ctx, kg, enc, encoder = ckks
-    from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale
+    from gemini_seal.models.pipelines import build_ckks_mul_relin_rescale
 
     rk = kg.relin_keys()
     rk_data = np.stack([np.asarray(pk.data.data) for pk in rk.key(2)])
@@ -133,7 +133,7 @@ def test_pipeline_bfv_square_bit_exact(bfv):
     import jax
 
     ctx, kg, enc, dec = bfv
-    from gemini_seal_tpu.models.pipelines import build_bfv_mul_relin
+    from gemini_seal.models.pipelines import build_bfv_mul_relin
 
     rk = kg.relin_keys()
     rk_data = np.stack([np.asarray(pk.data.data) for pk in rk.key(2)])

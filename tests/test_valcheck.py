@@ -3,7 +3,7 @@ valcheck.h:32-197 semantics)."""
 
 import numpy as np
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     Ciphertext,
     CoeffModulus,
     EncryptionParameters,
@@ -15,7 +15,7 @@ from gemini_seal_tpu import (
     SecLevelType,
     SealContext,
 )
-from gemini_seal_tpu.valcheck import (
+from gemini_seal.valcheck import (
     is_buffer_valid,
     is_data_valid_for,
     is_metadata_valid_for,
@@ -79,12 +79,12 @@ def test_plain_too_long_rejected():
 
 
 def test_ingest_rejects_malformed_objects():
-    """Serialization is the trust boundary (VERDICT r1 item 9): loaders run
+    """Serialization is the trust boundary: loaders run
     the full metadata + per-limb residue validation, mirroring the
     reference's checked load (valcheck.cpp is_data_valid_for after
     unsafe_load)."""
     import pytest
-    from gemini_seal_tpu import serialization as ser
+    from gemini_seal import serialization as ser
 
     ctx, kg = make()
     enc = Encryptor(ctx, public_key=kg.public_key())
@@ -126,7 +126,7 @@ def test_key_level_ciphertext_rejected_at_ingest():
     """An ordinary ciphertext claiming the key level is metadata-invalid
     (valcheck.cpp:70-84) and must be rejected on load."""
     import pytest
-    from gemini_seal_tpu import serialization as ser
+    from gemini_seal import serialization as ser
 
     ctx, kg = make()
     key_cd = ctx.key_context_data()

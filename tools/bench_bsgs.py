@@ -3,8 +3,8 @@
 The flat hoisted matvec (build_ckks_matvec) pays one key-switch inner
 product + digit Galois gather per diagonal; BSGS (build_ckks_matvec_bsgs)
 pays ~2*sqrt(k) inner products but G extra mod-up/mod-down passes.  This
-tool measures the crossover on the real chip (VERDICT r2 wants levers
-measured, not estimated — same rule as the MXU NTT verdict).
+tool measures the crossover on the device (levers are measured, not
+estimated).
 
 Usage: python tools/bench_bsgs.py [--batch 16] [--dims 16,32,64] [--small]
 One JSON line per (dim, variant).
@@ -14,33 +14,31 @@ import argparse
 import json
 import os
 import sys
-import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from gemini_seal import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--iters", type=int, default=0)
     ap.add_argument("--dims", default="16,32,64")
     ap.add_argument("--small", action="store_true")
     cfg = ap.parse_args()
 
     import jax
-    import jax.numpy as jnp
     import numpy as np
 
-    from gemini_seal_tpu import (CKKSEncoder, CoeffModulus,
-                                 EncryptionParameters, Encryptor,
-                                 KeyGenerator, SchemeType, SecLevelType,
-                                 SealContext)
-    from gemini_seal_tpu.models.pipelines import (build_ckks_matvec,
-                                                  build_ckks_matvec_bsgs)
+    from gemini_seal import (CKKSEncoder, CoeffModulus,
+                             EncryptionParameters, Encryptor,
+                             KeyGenerator, SchemeType, SecLevelType,
+                             SealContext)
+    from gemini_seal.devices import time_calls
+    from gemini_seal.models.pipelines import (build_ckks_matvec,
+                                              build_ckks_matvec_bsgs)
 
     n = 1024 if cfg.small else 8192
     bits = [40, 30, 40] if cfg.small else [50, 40, 40, 50]
@@ -56,26 +54,8 @@ def main():
     slots = encoder.slot_count
     rng = np.random.default_rng(1)
 
-    def checksum_jit(fn):
-        return jax.jit(
-            lambda salt, *a: jnp.sum(fn(*a), dtype=jnp.uint64) + salt
-        )
-
-    def sync_time(step, args, batch, iters):
-        x = step(np.uint64(0), *args)
-        int(x)
-        if not iters:
-            t0 = time.perf_counter()
-            for i in range(3):
-                x = step(np.uint64(i), *args)
-            int(x)
-            per = (time.perf_counter() - t0) / 3
-            iters = max(5, min(500, int(2.0 / max(per, 1e-6))))
-        t0 = time.perf_counter()
-        for i in range(iters):
-            x = step(np.uint64(i), *args)
-        int(x)
-        return batch * iters / (time.perf_counter() - t0)
+    def rate(step, args, batch):
+        return batch / time_calls(step, args)
 
     x = enc.encrypt(encoder.encode([0.5] * slots, 2.0 ** 40))
     a = np.broadcast_to(np.asarray(x.data), (cfg.batch,) + x.data.shape)
@@ -91,11 +71,10 @@ def main():
         flat_steps = sorted(s for s in diagonals if s != 0)
         flat_elts = [tool.get_elt_from_step(s) for s in flat_steps]
         gkf = kg.galois_keys(flat_elts)
-        step = checksum_jit(
+        step = jax.jit(
             build_ckks_matvec(ctx, diagonals, 2.0 ** 40, encoder))
         dk = jax.device_put(gkf.stacked(*flat_elts))
-        flat = sync_time(lambda s, c, k: step(s, c, k), (da, dk),
-                         cfg.batch, cfg.iters)
+        flat = rate(step, (da, dk), cfg.batch)
         print(json.dumps({"metric": f"matvec{dim}_flat_n{n}",
                           "value": round(flat, 2), "unit": "matvecs/s",
                           "rotations": len(flat_steps)}), flush=True)
@@ -104,10 +83,9 @@ def main():
             ctx, diagonals, 2.0 ** 40, encoder)
         elts = [tool.get_elt_from_step(s) for s in rot_steps]
         gkb = kg.galois_keys(elts)
-        stepb = checksum_jit(fn)
+        stepb = jax.jit(fn)
         dkb = jax.device_put(gkb.stacked(*elts))
-        bsgs = sync_time(lambda s, c, k: stepb(s, c, k), (da, dkb),
-                         cfg.batch, cfg.iters)
+        bsgs = rate(stepb, (da, dkb), cfg.batch)
         print(json.dumps({"metric": f"matvec{dim}_bsgs_n{n}",
                           "value": round(bsgs, 2), "unit": "matvecs/s",
                           "rotations": len(rot_steps),

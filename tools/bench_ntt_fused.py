@@ -1,137 +1,103 @@
-"""A/B the fused two-stage (radix-4 view) NTT against per-stage radix-2
-on the real TPU (ops/ntt.py FUSE_STAGES).
+"""Sweep the NTT's fused-stage depth k (ops/ntt.py FUSE_STAGES) on one GPU.
 
-The two paths are bit-identical by construction (same butterfly sequence);
-this measures whether eliding every second stage materialization moves the
-HBM-bound NTT (PERF.md: ~12 ms bandwidth floor vs ~10 ms compute floor on
-the headline step).  Prints poly-limb NTTs/s both ways, then the headline
-CKKS mult+relin+rescale step both ways.
+k butterfly stages run per materialization in one radix-2^k view of the
+same radix-2 arithmetic, so every k gives bit-identical outputs; this
+measures which k the compiled program runs fastest at.  Prints poly-limb
+NTTs/s for k = 1..4, forward and inverse, at N=16384 L=6 and N=8192 L=4,
+then the bench.py headline step (CKKS N=8192 multiply+relinearize+rescale)
+at each k.  Every timed call ends in ``block_until_ready`` on its real
+output; every output is checked against k=1 before it is timed.
 
-Honest-measurement rules from bench.py: checksum-returning jitted step,
-single fetch drains the in-order stream.
+    python tools/bench_ntt_fused.py [--batch 128] [--skip-headline]
 """
 
 import argparse
+import json
 import os
 import sys
-import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-
-def _sync_time(step, args, batch, iters):
-    import numpy as np
-
-    x = step(np.uint64(0), *args)
-    int(x)  # compile + warm + sync
-    if not iters:
-        t0 = time.perf_counter()
-        for i in range(3):
-            x = step(np.uint64(i), *args)
-        int(x)
-        per = (time.perf_counter() - t0) / 3
-        iters = max(5, min(500, int(2.0 / max(per, 1e-6))))
-    t0 = time.perf_counter()
-    for i in range(iters):
-        x = step(np.uint64(i), *args)
-    int(x)
-    dt = time.perf_counter() - t0
-    return batch * iters / dt
+DEPTHS = (1, 2, 3, 4)
+SHAPES = ((16384, [50, 40, 40, 40, 40, 50]), (8192, [50, 40, 40, 50]))
 
 
 def main():
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--iters", type=int, default=0)
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--skip-headline", action="store_true")
     cfg = ap.parse_args()
 
-    if cfg.cpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-
     import jax
-    import jax.numpy as jnp
     import numpy as np
 
-    from gemini_seal_tpu.modulus import CoeffModulus
-    from gemini_seal_tpu.ops import ntt
+    from gemini_seal import compile_cache
+    from gemini_seal.devices import card_line, require_gpu, time_calls
+    from gemini_seal.modulus import CoeffModulus
+    from gemini_seal.ops import ntt
 
-    print("devices:", jax.devices())
+    require_gpu(jax.default_backend(), "bench_ntt_fused.py")
+    compile_cache.enable()
+    print(f"card: {card_line()}; {jax.devices()[0].device_kind}", flush=True)
+    default = ntt.FUSE_STAGES
 
-    def checksum_jit(fn):
-        return jax.jit(lambda salt, *a: jnp.sum(fn(*a), dtype=jnp.uint64) + salt)
+    def emit(**rec):
+        print(json.dumps(rec), flush=True)
 
-    for n, bits in [(16384, [50, 40, 40, 40, 40, 50]), (8192, [50, 40, 40, 50])]:
-        logn = n.bit_length() - 1
-        mods = CoeffModulus.create(n, bits)
-        L = len(mods)
-        tabs = ntt.build_ntt_tables(logn, mods)
-        rng = np.random.default_rng(0)
-        x = np.stack(
-            [rng.integers(0, m.value, (cfg.batch, 2, n), dtype=np.uint64)
-             for m in mods], axis=2,
-        )  # [B, 2, L, N]
-        dx = jax.device_put(x)
-        nttsteps = cfg.batch * 2 * L
-
-        rates = {}
-        try:
-            for depth in (1, 2, 3, 4):
-                ntt.FUSE_STAGES = depth
-                fwd = checksum_jit(lambda v: ntt.ntt_forward(v, tabs))
-                rates[(depth, "fwd")] = _sync_time(
-                    lambda s, v: fwd(s, v), (dx,), nttsteps, cfg.iters)
-                inv = checksum_jit(lambda v: ntt.ntt_inverse(v, tabs))
-                rates[(depth, "inv")] = _sync_time(
-                    lambda s, v: inv(s, v), (dx,), nttsteps, cfg.iters)
-                print(f"N={n} k={depth} fwd: {rates[(depth, 'fwd')]:,.0f} "
-                      f"inv: {rates[(depth, 'inv')]:,.0f} poly-limb NTTs/s "
-                      f"({rates[(depth, 'fwd')] / rates[(1, 'fwd')]:.3f}x / "
-                      f"{rates[(depth, 'inv')] / rates[(1, 'inv')]:.3f}x vs k=1)")
-        finally:
-            ntt.FUSE_STAGES = 2
-
-    if cfg.skip_headline:
-        return
-
-    # Headline step A/B (bench.py shape: CKKS N=8192 {50,40,40,50}).
-    from gemini_seal_tpu import (
-        CKKSEncoder, CoeffModulus as CM, EncryptionParameters, Encryptor,
-        KeyGenerator, SchemeType, SealContext,
-    )
-    from gemini_seal_tpu.models.pipelines import build_ckks_mul_relin_rescale
-
-    parms = EncryptionParameters(SchemeType.CKKS)
-    parms.set_poly_modulus_degree(8192)
-    parms.set_coeff_modulus(CM.create(8192, [50, 40, 40, 50]))
-    parms.set_random_seed(tuple(range(71, 79)))
-    ctx = SealContext(parms)
-    kg = KeyGenerator(ctx)
-    enc = Encryptor(ctx, public_key=kg.public_key())
-    encoder = CKKSEncoder(ctx)
-    rk = kg.relin_keys()
-    ct = enc.encrypt(encoder.encode([1.001] * encoder.slot_count, 2.0**40))
-    rk_data = np.stack([np.asarray(pk.data.data) for pk in rk.key(2)])
-    B = cfg.batch
-    a = np.broadcast_to(np.asarray(ct.data), (B,) + ct.data.shape)
-    dev_a = jax.device_put(a)
-    dev_rk = jax.device_put(rk_data)
     try:
-        for depth in (1, 2, 3, 4):
+        for n, bits in SHAPES:
+            mods = CoeffModulus.create(n, bits)
+            tabs = ntt.build_ntt_tables(n.bit_length() - 1, mods)
+            rng = np.random.default_rng(0)
+            x = np.stack(
+                [rng.integers(0, m.value, (cfg.batch, 2, n), dtype=np.uint64)
+                 for m in mods], axis=2,
+            )  # [B, 2, L, N]
+            dx = jax.device_put(x)
+            rows = cfg.batch * 2 * len(mods)
+            want = {}
+            for depth in DEPTHS:
+                ntt.FUSE_STAGES = depth
+                for kind, fn in (("fwd", ntt.ntt_forward),
+                                 ("inv", ntt.ntt_inverse)):
+                    step = jax.jit(lambda v, f=fn: f(v, tabs))
+                    got = np.asarray(step(dx))
+                    want.setdefault(kind, got)
+                    if not np.array_equal(got, want[kind]):
+                        raise AssertionError(f"N={n} k={depth} {kind} differs")
+                    emit(n=n, limbs=len(mods), batch=cfg.batch, k=depth,
+                         kind=kind, ntts_per_s=rows / time_calls(step, (dx,)))
+
+        if cfg.skip_headline:
+            return
+
+        from gemini_seal import (
+            CKKSEncoder, EncryptionParameters, Encryptor, KeyGenerator,
+            SchemeType, SealContext,
+        )
+        from gemini_seal.models.pipelines import build_ckks_mul_relin_rescale
+
+        parms = EncryptionParameters(SchemeType.CKKS)
+        parms.set_poly_modulus_degree(8192)
+        parms.set_coeff_modulus(CoeffModulus.create(8192, [50, 40, 40, 50]))
+        parms.set_random_seed(tuple(range(71, 79)))
+        ctx = SealContext(parms)
+        kg = KeyGenerator(ctx)
+        enc = Encryptor(ctx, public_key=kg.public_key())
+        encoder = CKKSEncoder(ctx)
+        ct = enc.encrypt(encoder.encode([1.001] * encoder.slot_count,
+                                        2.0 ** 40))
+        dev_a = jax.device_put(np.broadcast_to(
+            np.asarray(ct.data), (cfg.batch,) + ct.data.shape))
+        dev_rk = jax.device_put(kg.relin_keys().stacked(2))
+        for depth in DEPTHS:
             ntt.FUSE_STAGES = depth
-            inner = build_ckks_mul_relin_rescale(ctx, fused=True)
-            step = jax.jit(
-                lambda salt, u, k: jnp.sum(inner(u, u, k), dtype=jnp.uint64) + salt
-            )
-            rate = _sync_time(step, (dev_a, dev_rk), B, cfg.iters)
-            print(f"headline mul+relin+rescale N=8192 B={B} k={depth}: "
-                  f"{rate:,.1f} ops/s")
+            step = jax.jit(build_ckks_mul_relin_rescale(ctx, fused=True))
+            per = time_calls(step, (dev_a, dev_a, dev_rk), min_seconds=3.0)
+            emit(step="ckks_mul_relin_rescale_n8192", batch=cfg.batch,
+                 k=depth, ops_per_s=cfg.batch / per)
     finally:
-        ntt.FUSE_STAGES = 2
+        ntt.FUSE_STAGES = default
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Wire-to-wire serving benchmark: submit() vs the pipelined
-submit_stream() (VERDICT r3 item 6 — overlap the host<->device tunnel
+submit_stream() (overlapping host work and host<->device copies
 with compute), and expanded vs seed-compressed ingress blobs.
 
 Shape mirrors PERF.md's serving row: fused dense layer act(M@x+b),
@@ -16,9 +16,10 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
+
+from gemini_seal import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import numpy as np
 
@@ -35,13 +36,13 @@ def main():
 
         jax.config.update("jax_platforms", "cpu")
 
-    from gemini_seal_tpu import (
+    from gemini_seal import (
         CKKSEncoder, CoeffModulus, EncryptionParameters, Encryptor,
         KeyGenerator, SchemeType, SecLevelType, SealContext,
     )
-    from gemini_seal_tpu import serialization as ser
-    from gemini_seal_tpu.models.pipelines import build_ckks_dense_layer
-    from gemini_seal_tpu.models.serving import EncryptedComputeServer
+    from gemini_seal import serialization as ser
+    from gemini_seal.models.pipelines import build_ckks_dense_layer
+    from gemini_seal.models.serving import EncryptedComputeServer
 
     n = 512 if cfg.small else 8192
     parms = EncryptionParameters(SchemeType.CKKS)

@@ -1,4 +1,4 @@
-"""Diagnose the N=4096 bootstrap refresh error distribution on the TPU.
+"""Diagnose the N=4096 bootstrap refresh error distribution on the device.
 
 Rebuilds the EXACT bench_all.py bootstrap config (compiled programs come
 from the persistent cache), runs ONE refresh, and prints slot-error
@@ -16,10 +16,11 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from gemini_seal import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import numpy as np
 
@@ -41,7 +42,7 @@ def main():
 
     if cfg.cpu:
         jax.config.update("jax_platforms", "cpu")
-    from gemini_seal_tpu import (
+    from gemini_seal import (
         CKKSEncoder,
         CoeffModulus,
         Decryptor,
@@ -53,8 +54,8 @@ def main():
         SealContext,
         SecLevelType,
     )
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models import bootstrap as bs
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models import bootstrap as bs
 
     n, radix, nsp = cfg.n, 4, 3
     K = max(12, int(math.ceil(4.5 * math.sqrt(n / 18.0)))) + cfg.k_margin

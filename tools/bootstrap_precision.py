@@ -1,4 +1,4 @@
-"""Bootstrap refresh precision sweep (VERDICT r4 item 2).
+"""Bootstrap refresh precision sweep.
 
 Runs the FULL composed refresh (split + cosine EvalMod) at a non-toy
 shape over (r double-angle count, scaling prime width) and prints one
@@ -20,10 +20,11 @@ import os
 import sys
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from gemini_seal import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import numpy as np
 
@@ -32,7 +33,7 @@ def run_cell(n, radix, r, bits, nsp=2):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from gemini_seal_tpu import (
+    from gemini_seal import (
         CKKSEncoder,
         CoeffModulus,
         Decryptor,
@@ -44,12 +45,12 @@ def run_cell(n, radix, r, bits, nsp=2):
         SealContext,
         SecLevelType,
     )
-    from gemini_seal_tpu.ciphertext import Ciphertext
-    from gemini_seal_tpu.models.bootstrap import (
+    from gemini_seal.ciphertext import Ciphertext
+    from gemini_seal.models.bootstrap import (
         build_ckks_bootstrap,
         plan_bootstrap_chain,
     )
-    from gemini_seal_tpu.models.evalmod import plan_evalmod
+    from gemini_seal.models.evalmod import plan_evalmod
 
     K = max(12, int(math.ceil(4.5 * math.sqrt(n / 18.0))))
     r_used, coeffs, em_depth = plan_evalmod(K, r)

@@ -1,5 +1,5 @@
 #!/bin/bash
-# One-command verification gate (VERDICT r1 item 10): build the native
+# One-command verification gate: build the native
 # module and the reference oracle, run the FULL test suite (failing loudly
 # if any oracle-gated interop test skipped), and self-test the driver
 # entry points.  Run before every bench commit.
@@ -16,9 +16,6 @@ echo "== reference oracle =="
 bash tools/build_oracle.sh
 
 echo "== test suite =="
-export JAX_COMPILATION_CACHE_DIR="$PWD/.jax_cache"
-export JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS=0
-export JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES=0
 LOG=$(mktemp)
 python -m pytest tests/ -q -rs "$@" 2>&1 | tee "$LOG"
 
@@ -29,15 +26,12 @@ fi
 
 echo "== bootstrap e2e (split mode, cosine EvalMod) =="
 # the flagship beyond-reference capability refreshes end-to-end in the
-# default gate (VERDICT r3 item 1c); split-mode compiles are seconds
+# default gate; split-mode compiles are seconds
 # post the round-3 85x BSGS compile fix.  Round 5 adds the non-toy
 # N=1024/nsp=2/radix=4 shape and the dp-sharded refresh.
 GST_BOOTSTRAP_E2E=1 python -m pytest tests/test_bootstrap.py \
   tests/test_bootstrap_sp.py -q \
   -k "split or n1024 or dp_sharded" -m bootstrap_e2e
-
-echo "== doc coherence =="
-python tools/doc_guard.py
 
 echo "== driver entry points =="
 python __graft_entry__.py

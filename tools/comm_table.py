@@ -1,12 +1,10 @@
-"""Emit the ICI comm-volume table for PERF.md.
+"""Emit the collective-volume table of the sharded pipelines.
 
-Real multi-chip hardware is unavailable, so the scaling-efficiency
-evidence is a byte-count model extracted from the GSPMD-partitioned HLO:
-for each sharded pipeline we report the per-step collective traffic
-(result bytes per device, by collective kind) next to the step's HBM
-working-set bytes — the ratio bounds the ICI:HBM pressure and therefore
-the parallel efficiency on a real v5e pod (ICI ~ 4x HBM bandwidth per
-chip per direction; see PERF.md roofline).
+A byte-count model extracted from the GSPMD-partitioned HLO: for each
+sharded pipeline we report the per-step collective traffic (result bytes
+per device, by collective kind) next to the step's input working-set
+bytes.  The counts are properties of the compiled program, so a virtual
+CPU mesh gives the same table as the cards.
 
 Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        python tools/comm_table.py
@@ -19,20 +17,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
+from gemini_seal import compile_cache
+
 jax.config.update("jax_platforms", "cpu")
+compile_cache.enable()
 
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from gemini_seal_tpu import (
+from gemini_seal import (
     CKKSEncoder, CoeffModulus, EncryptionParameters, Encryptor, KeyGenerator,
     SchemeType, SecLevelType, SealContext,
 )
-from gemini_seal_tpu.models.pipelines import (
+from gemini_seal.models.pipelines import (
     build_ckks_mul_relin_rescale, build_ckks_train_step,
 )
-from gemini_seal_tpu.parallel.comm import collective_stats
-from gemini_seal_tpu.parallel.mesh import make_he_mesh
+from gemini_seal.parallel.comm import collective_stats
+from gemini_seal.parallel.mesh import make_he_mesh
 
 
 def make_ctx(n, n_primes, nsp):
@@ -80,8 +81,8 @@ def row(name, ctx, kg, batch, dp, limb, builder, n_keys=1):
 
 
 def main():
-    print("| pipeline | mesh (dp,limb) | ct shape | ICI bytes/step | "
-          "HBM working set | ICI:HBM | by kind |")
+    print("| pipeline | mesh (dp,limb) | ct shape | collective bytes/step | "
+          "working set | collective:working set | by kind |")
     print("|---|---|---|---|---|---|---|")
 
     # realistic serving shape: N=4096, L=8 + nsp=2
@@ -104,13 +105,13 @@ def main():
 def _explicit_rows(ctx, kg):
     from jax.sharding import Mesh
 
-    from gemini_seal_tpu.models.pipelines import build_bfv_mul_relin
-    from gemini_seal_tpu.ops.keyswitch import KeySwitchPlan
-    from gemini_seal_tpu.parallel.behz_sp import bfv_mul_relin_limb_sharded
-    from gemini_seal_tpu.parallel.keyswitch_sp import (
+    from gemini_seal.models.pipelines import build_bfv_mul_relin
+    from gemini_seal.ops.keyswitch import KeySwitchPlan
+    from gemini_seal.parallel.behz_sp import bfv_mul_relin_limb_sharded
+    from gemini_seal.parallel.keyswitch_sp import (
         ckks_mul_relin_rescale_limb_sharded,
     )
-    from gemini_seal_tpu.parallel.pipeline_csp import (
+    from gemini_seal.parallel.pipeline_csp import (
         ckks_mul_relin_rescale_coeff_sharded,
     )
 
@@ -157,7 +158,7 @@ def _explicit_rows(ctx, kg):
          collective_stats(cfn.lower(dca, dca, dck).compile().as_text()))
 
     # BFV BEHZ: GSPMD vs the explicit five-gather schedule
-    from gemini_seal_tpu import PlainModulus, Plaintext
+    from gemini_seal import PlainModulus, Plaintext
 
     bparms = EncryptionParameters(SchemeType.BFV)
     bparms.set_poly_modulus_degree(2048)

@@ -1,98 +1,52 @@
-"""Per-config floor accounting (VERDICT r4 item 3).
+"""Per-config floor accounting.
 
 For each BASELINE config this traces the EXACT pipeline bench_all.py times
 (same shapes, same builders) with the trace-time counters in
 ops/ntt.TRACE_COUNTS and ops/modops.TRACE_MACS enabled, giving the true
 per-op work profile of the compiled program:
 
-- poly-limb NTT rows per ciphertext op, split forward/inverse (the
-  bandwidth/compute-bound term PERF.md's roofline models), and
+- poly-limb NTT rows per ciphertext op, split forward/inverse, and
 - 64x64->128 MAC element counts per op (the key-switch inner product /
   BEHZ base-conversion contractions — the second-largest term).
 
-The modeled floor is then
+With ``--measure`` it also times the NTT rows/s per N and the MAC rate on
+the GPU it runs on and prints the modeled floor
 
     t_floor = fwd_rows / rate_fwd(N) + inv_rows / rate_inv(N)
               + macs / rate_mac
 
-with rates measured on the chip (``--measure`` re-runs the microbenches
-and prints a fresh RATES block; the committed values below are from the
-round-5 run).  Everything else (dyadic products, Galois gathers, where-
-chains, reshapes) is deliberately UNMODELED — XLA fuses most of it into
-the NTT/MAC loads (PERF.md's config-2' gather finding), so %-of-floor
-close to 100 means "the step is NTT+contraction bound and at the machine
-floor"; a low % means real unexplained time worth profiling.
+Everything else (dyadic products, Galois gathers, where-chains, reshapes)
+is deliberately UNMODELED — XLA fuses most of it into the NTT/MAC loads —
+so a measured step close to its floor is NTT+contraction bound; one far
+from it spends real time elsewhere, worth profiling.  No rates are kept
+in the code: a floor is printed only from rates measured in the same run.
 
 Usage:
-    python tools/floor_model.py            # trace counts + table (CPU ok)
-    python tools/floor_model.py --measure  # re-measure rates on the chip
+    python tools/floor_model.py            # work profile per op (CPU ok)
+    python tools/floor_model.py --measure  # + rates and floor, on a GPU
 """
 
 import argparse
 import json
 import os
 import sys
-import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-# PLACEHOLDER rates pending the on-chip --measure run (N=8192/16384 rows
-# from PERF.md's k=2 sweep; 4096/32768 extrapolated; mac_g a guess) —
-# replaced by measured values before the PERF.md floor table is written.
-RATES = {
-    "ntt": {
-        # N: (fwd rows/s, inv rows/s)
-        4096: (580_193.0, 783_074.0),
-        8192: (265_113.0, 367_903.0),
-        16384: (82_735.0, 96_411.0),
-        32768: (36_512.0, 39_309.0),
-    },
-    "mac_g": 2.477e9,
-}
-
-# bench_all.py round-4 measured ops/s (isolated --only runs, batch 128) —
-# PERF.md results table; config 2 row is the sequential rotate.
-MEASURED_OPS = {
-    "1": 7704.0,
-    "2": 4919.0,
-    "3": 1278.0,
-    "4": 1167.0,
-    "4p": 6902.0,
-    "5": 97.5,
-}
 
 BATCH = 128
 
 
 def _emit_rates():
-    """Measure NTT rows/s per N and the MAC rate on the current backend."""
+    """Measure NTT rows/s per N and the MAC rate on the GPU."""
     import jax
-    import jax.numpy as jnp
     import numpy as np
 
-    from gemini_seal_tpu.modulus import CoeffModulus
-    from gemini_seal_tpu.ops import modops, ntt
-    from gemini_seal_tpu.ops.dyadic import LimbConstants
+    from gemini_seal.devices import card_line, time_calls
+    from gemini_seal.modulus import CoeffModulus
+    from gemini_seal.ops import modops, ntt
+    from gemini_seal.ops.dyadic import LimbConstants
 
-    def checksum_jit(fn):
-        return jax.jit(lambda salt, *a: jnp.sum(fn(*a), dtype=jnp.uint64) + salt)
-
-    def sync_time(step, args, units):
-        x = step(np.uint64(0), *args)
-        int(x)
-        t0 = time.perf_counter()
-        for i in range(3):
-            x = step(np.uint64(i), *args)
-        int(x)
-        per = (time.perf_counter() - t0) / 3
-        iters = max(5, min(300, int(2.0 / max(per, 1e-6))))
-        t0 = time.perf_counter()
-        for i in range(iters):
-            x = step(np.uint64(i), *args)
-        int(x)
-        return units * iters / (time.perf_counter() - t0)
-
+    print(f"card: {card_line()}; {jax.devices()[0].device_kind}", flush=True)
     out = {"ntt": {}}
     rng = np.random.default_rng(0)
     for n, bits in [(4096, [36, 36, 37]), (8192, [50, 40, 40, 50]),
@@ -104,19 +58,18 @@ def _emit_rates():
         tabs = ntt.build_ntt_tables(logn, mods)
         # batch 128 lanes at EVERY N (the config benches run batch-128
         # ciphertexts; shrinking b with N under-amortizes the big-N rows
-        # and under-states the floor — configs 4/5 measured >100% of the
-        # first model for exactly this reason)
+        # and under-states the floor)
         b = BATCH
         x = np.stack(
             [rng.integers(0, m.value, (b, 2, n), dtype=np.uint64) for m in mods],
             axis=2)
         dx = jax.device_put(x)
         rows = b * 2 * L
-        fwd = sync_time(checksum_jit(lambda y: ntt.ntt_forward(y, tabs)),
-                        (dx,), rows)
-        inv = sync_time(checksum_jit(lambda y: ntt.ntt_inverse(y, tabs)),
-                        (dx,), rows)
-        out["ntt"][n] = (round(fwd, 0), round(inv, 0))
+        fwd = rows / time_calls(jax.jit(lambda y: ntt.ntt_forward(y, tabs)),
+                                (dx,))
+        inv = rows / time_calls(jax.jit(lambda y: ntt.ntt_inverse(y, tabs)),
+                                (dx,))
+        out["ntt"][n] = (fwd, inv)
         print(f"  N={n}: fwd {fwd:,.0f} rows/s, inv {inv:,.0f} rows/s",
               flush=True)
 
@@ -134,10 +87,9 @@ def _emit_rates():
             lc.p, lc.ratio0, lc.ratio1)
 
     macs = b * nb * O * n
-    rate = sync_time(checksum_jit(contract), (da, dw), macs)
+    rate = macs / time_calls(jax.jit(contract), (da, dw))
     out["mac_g"] = rate
     print(f"  MAC rate: {rate / 1e9:.3f} G MAC/s", flush=True)
-    print("RATES =", json.dumps(out))
     return out
 
 
@@ -145,7 +97,7 @@ def _trace(fn, *args):
     """eval_shape fn(*args) with the counters on; return per-trace totals."""
     import jax
 
-    from gemini_seal_tpu.ops import modops, ntt
+    from gemini_seal.ops import modops, ntt
 
     ntt.TRACE_COUNTS = []
     modops.TRACE_MACS = []
@@ -170,12 +122,12 @@ def trace_configs(keys):
     """
     import numpy as np
 
-    from gemini_seal_tpu import (
+    from gemini_seal import (
         BatchEncoder, CKKSEncoder, CoeffModulus, EncryptionParameters,
         Encryptor, KeyGenerator, PlainModulus, SchemeType, SecLevelType,
         SealContext,
     )
-    from gemini_seal_tpu.models.pipelines import (
+    from gemini_seal.models.pipelines import (
         build_bfv_mul_relin, build_bfv_mul_relin_modswitch,
         build_ckks_mul_relin_rescale, build_ckks_poly_eval,
     )
@@ -209,8 +161,8 @@ def trace_configs(keys):
     if "2" in keys:
         import jax.numpy as jnp
 
-        from gemini_seal_tpu.ops.dyadic import add_poly
-        from gemini_seal_tpu.ops.keyswitch import KeySwitchPlan, switch_key
+        from gemini_seal.ops.dyadic import add_poly
+        from gemini_seal.ops.keyswitch import KeySwitchPlan, switch_key
         n = 8192
         parms = EncryptionParameters(SchemeType.BFV)
         parms.set_poly_modulus_degree(n)
@@ -298,53 +250,56 @@ def trace_configs(keys):
     return out
 
 
-def floor_table(profiles, rates=RATES, measured=MEASURED_OPS):
+def floor_table(profiles, rates=None):
+    """Per-op work profile of each config; with rates, its modeled floor."""
     rows = []
     for key, p in sorted(profiles.items()):
         ops = p["ops"]
         t = 0.0
         fwd_rows = inv_rows = 0
         for (kind, n), r in sorted(p["counts"].items()):
-            fr, ir = rates["ntt"][n]
-            t += r / (fr if kind == "fwd" else ir)
+            if rates is not None:
+                fr, ir = rates["ntt"][n]
+                t += r / (fr if kind == "fwd" else ir)
             if kind == "fwd":
                 fwd_rows += r
             else:
                 inv_rows += r
-        t_mac = p["macs"] / rates["mac_g"]
-        t_total = (t + t_mac) / ops
-        floor = 1.0 / t_total
-        meas = measured.get(key)
-        rows.append({
+        row = {
             "config": key, "n": p["n"],
-            "fwd_rows_per_op": round(fwd_rows / ops, 2),
-            "inv_rows_per_op": round(inv_rows / ops, 2),
-            "gmac_per_op": round(p["macs"] / ops / 1e9, 4),
-            "t_ntt_us": round(t / ops * 1e6, 1),
-            "t_mac_us": round(t_mac / ops * 1e6, 1),
-            "floor_ops_s": round(floor, 1),
-            "measured_ops_s": meas,
-            "pct_of_floor": round(100.0 * meas / floor, 1) if meas else None,
-        })
+            "fwd_rows_per_op": fwd_rows / ops,
+            "inv_rows_per_op": inv_rows / ops,
+            "gmac_per_op": p["macs"] / ops / 1e9,
+        }
+        if rates is not None:
+            t_mac = p["macs"] / rates["mac_g"]
+            row.update(t_ntt_us=t / ops * 1e6, t_mac_us=t_mac / ops * 1e6,
+                       floor_ops_s=ops / (t + t_mac))
+        rows.append(row)
     return rows
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--measure", action="store_true",
-                    help="re-measure NTT/MAC rates on the current backend")
+                    help="measure NTT/MAC rates on the GPU and print floors")
     ap.add_argument("--only", default="1,2,3,4,4p,5")
     cfg = ap.parse_args()
 
-    if not cfg.measure:
-        # tracing never executes — force CPU so this runs anywhere
-        import jax
-        jax.config.update("jax_platforms", "cpu")
+    import jax
 
-    rates = RATES
+    from gemini_seal import compile_cache
+
     if cfg.measure:
-        rates = _emit_rates()
+        from gemini_seal.devices import require_gpu
 
+        require_gpu(jax.default_backend(), "floor_model.py --measure")
+    else:
+        # tracing never executes: the CPU does it anywhere
+        jax.config.update("jax_platforms", "cpu")
+    compile_cache.enable()
+
+    rates = _emit_rates() if cfg.measure else None
     keys = set(cfg.only.split(","))
     profiles = trace_configs(keys)
     for row in floor_table(profiles, rates):

@@ -7,7 +7,7 @@ sqrt(N) is ~3.7 sigma of the residual (sigma ~ sqrt(N/12) for the dense
 ternary secret), which fails with near-certainty once N has thousands of
 coefficients — the round-5 N=4096 bench measured max_err 0.146 from
 exactly these overflows.  This tool computes I EXACTLY (Python-int
-negacyclic convolution, no TPU, no approximation) over many fresh
+negacyclic convolution, no device, no approximation) over many fresh
 ciphertexts to calibrate the replacement formula.
 
 Usage: python tools/modraise_bound.py [--n 4096] [--trials 5]
@@ -19,8 +19,11 @@ import os
 import sys
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from gemini_seal import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import numpy as np
 
@@ -29,7 +32,7 @@ def residual_max(n, seed):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from gemini_seal_tpu import (
+    from gemini_seal import (
         CKKSEncoder,
         CoeffModulus,
         EncryptionParameters,
@@ -40,7 +43,7 @@ def residual_max(n, seed):
         SealContext,
         SecLevelType,
     )
-    from gemini_seal_tpu.ops.ntt import ntt_inverse
+    from gemini_seal.ops.ntt import ntt_inverse
 
     parms = EncryptionParameters(SchemeType.CKKS)
     parms.set_poly_modulus_degree(n)

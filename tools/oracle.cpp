@@ -1,6 +1,6 @@
 // Interop oracle: drives the *reference* C++ library (built separately from
 // /root/reference) to generate serialized test vectors and to decrypt
-// ciphertexts produced by gemini_seal_tpu.  Used by tests/test_interop.py
+// ciphertexts produced by gemini_seal.  Used by tests/test_interop.py
 // for byte-level wire-format and bit-exact evaluation cross-checks.
 //
 // Usage:

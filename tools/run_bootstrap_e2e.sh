@@ -3,6 +3,5 @@
 # ~6 deep jitted programs; minutes of XLA compile on a single host core).
 set -e
 cd "$(dirname "$0")/.."
-export JAX_COMPILATION_CACHE_DIR=/root/repo/.jax_cache
 export GST_BOOTSTRAP_E2E=1
 exec python -m pytest tests/test_bootstrap.py -q "$@"

@@ -1,31 +1,18 @@
-"""Predicted multi-chip scaling efficiency (BASELINE.md's >=80% target).
+"""Per-device collective bytes of each multi-device schedule.
 
-Real multi-chip hardware is unreachable from this environment, so the
-completable form of BASELINE's "ops/s scaling efficiency >= 80% from
-1 chip to >= 2 hosts" deliverable is a FALSIFIABLE PREDICTION: combine
+The byte volume each device sends per step, as a function of the device
+count C, for every config's schedules: analytic formulas anchored to and
+guarded against the partitioned HLO byte counts (parallel/comm.py;
+tests/test_scaling_model.py pins formula == HLO at the virtual-mesh-
+measurable shape so the model cannot silently drift from the shipped
+code).  Turning bytes into a scaling efficiency needs the single-card
+step time and the interconnect's measured collective rate; both come
+from runs on the cards (``python chip_smoke.py --four-cards`` prints the
+step time and the collective bytes of each schedule).
 
-  (a) the measured single-chip step time of each config (PERF.md
-      round-4 table, checksum-sync timing on the real v5e-class chip),
-  (b) the per-device ICI byte volume of each schedule as a function of
-      chip count — analytic formulas anchored to and guarded against
-      the GSPMD-partitioned HLO byte counts (parallel/comm.py;
-      tests/test_scaling_model.py pins formula == HLO at the
-      virtual-mesh-measurable shape so the model cannot silently drift
-      from the shipped code), and
-  (c) v5e interconnect numbers: ICI ~45 GB/s/link/direction, ring
-      collectives ride 2 links -> W_eff ~ 90 GB/s per device;
-      per-collective launch/sync latency assumed 3 us.
-
-Model (conservative: NO compute/comm overlap):
-
-  T(C)   = T_1/C + bytes_per_device(C)/W_eff + n_collectives * t_launch
-  eff(C) = T_1 / (C * T(C))          # per-chip throughput vs 1 chip
-
-This is strong scaling of the latency slice (limb or coeff axis).  The
-production layout puts a dp axis ON TOP: dp moves ZERO ICI bytes
-(tests/test_parallel_guards.py pins this), so dp multiplies throughput
-at 100% efficiency and the table below is the worst case — a (dp x
-limb) mesh at C chips inherits the limb slice's efficiency only.
+A dp axis on top of any schedule moves ZERO collective bytes
+(tests/test_parallel_guards.py pins this), so the rows below are the
+latency slice (limb or coeff axis) only.
 
 Byte formulas per schedule (per device per step; b = ciphertext batch
 per latency slice, n_ct/L/nsp/N from the config's chain):
@@ -62,39 +49,32 @@ per latency slice, n_ct/L/nsp/N from the config's chain):
   b=8, limb=4) and guarded within 25% by test_scaling_model.py.
 
 Limb sharding (explicit or GSPMD) is capped at C = n_ct for BFV — the
-table prints n/a beyond it; a dp axis extends total chips at 100%
-efficiency past that point (zero-ICI, pinned by
-tests/test_parallel_guards.py).
+table prints n/a beyond it; a dp axis extends the device count past
+that point at zero collective bytes.
 
-Usage: python tools/scaling_model.py   (prints the PERF.md table)
+Usage: python tools/scaling_model.py   (prints the byte table)
 """
 
-import math
-
-W_EFF = 90e9          # bytes/s effective ring-collective BW per device
-T_LAUNCH = 3e-6       # seconds per collective launch/sync
-
-# Measured single-chip anchors (PERF.md round-4 table, batch 128).
-# n_ct = first-level ciphertext limb count, nsp = special primes.
-# "schedules" names the rows printed for the config; "max_limb" caps the
-# feasible limb-shard width (n/a beyond — dp extends at 100%).
+# BASELINE.md's configs at batch 128.  n_ct = first-level ciphertext limb
+# count, nsp = special primes.  "schedules" names the rows printed for
+# the config; "max_limb" caps the feasible limb-shard width.
 CONFIGS = {
     "config 1 (BFV mul+relin, N=4096)": dict(
-        T1=128.0 / 7704.0, b=128, N=4096, n_ct=2, nsp=1,
+        b=128, N=4096, n_ct=2, nsp=1,
         schedules=("GSPMD-BFV (XLA-chosen)", "BEHZ five-gather (behz_sp)"),
         max_limb=2),
     "config 2 (BFV rotate_rows, N=8192)": dict(
-        T1=128.0 / 4919.0, b=128, N=8192, n_ct=4, nsp=1,
+        b=128, N=8192, n_ct=4, nsp=1,
         schedules=("GSPMD-BFV (XLA-chosen)", "explicit one-gather"),
         max_limb=4),
     "config 3 (BFV mul+relin+chain, N=8192)": dict(
-        T1=128.0 / 1278.0, b=128, N=8192, n_ct=4, nsp=1,
+        b=128, N=8192, n_ct=4, nsp=1,
         schedules=("GSPMD-BFV (XLA-chosen)", "BEHZ five-gather (behz_sp)"),
         max_limb=4),
     "config 4 (CKKS mul+relin+rescale, N=16384)": dict(
-        T1=128.0 / 1166.83, b=128, N=16384, n_ct=5, nsp=1),
+        b=128, N=16384, n_ct=5, nsp=1),
     "config 5 (deep CKKS poly4+rot, N=32768)": dict(
-        T1=128.0 / 97.47, b=128, N=32768, n_ct=8, nsp=1),
+        b=128, N=32768, n_ct=8, nsp=1),
 }
 
 GSPMD_KAPPA = 4.4     # fitted: see tests/test_scaling_model.py anchors
@@ -146,33 +126,26 @@ DEFAULT_SCHEDULES = (
 )
 
 
-def efficiency(cfg, sched_fn, C):
-    if C == 1:
-        return 1.0
-    byts, n_coll = sched_fn(cfg["b"], cfg["n_ct"], cfg["nsp"],
-                            cfg["N"], C)
-    t_comm = byts / W_EFF + n_coll * T_LAUNCH
-    T1 = cfg["T1"]
-    return T1 / (C * (T1 / C + t_comm))
-
-
 def main():
-    chips = [1, 2, 4, 8]
+    chips = [2, 4, 8]
     print("| Config | Schedule | " +
-          " | ".join(f"eff @ {c} chips" for c in chips) + " |")
-    print("|---|---|" + "---|" * len(chips))
+          " | ".join(f"MiB/device @ {c}" for c in chips) +
+          " | collectives |")
+    print("|---|---|" + "---|" * (len(chips) + 1))
     for cname, cfg in CONFIGS.items():
         max_limb = cfg.get("max_limb", max(chips))
         for sname in cfg.get("schedules", DEFAULT_SCHEDULES):
             fn = SCHEDULES[sname]
-            cells = []
+            cells, n_coll = [], 0
             for c in chips:
                 if c > max_limb:
                     cells.append("n/a (dp)")
                     continue
-                e = efficiency(cfg, fn, c)
-                cells.append(f"**{e:.0%}**" if e >= 0.80 else f"{e:.0%}")
-            print(f"| {cname} | {sname} | " + " | ".join(cells) + " |")
+                byts, n_coll = fn(cfg["b"], cfg["n_ct"], cfg["nsp"],
+                                  cfg["N"], c)
+                cells.append(f"{byts / 2 ** 20:.1f}")
+            print(f"| {cname} | {sname} | " + " | ".join(cells) +
+                  f" | {n_coll} |")
 
 
 if __name__ == "__main__":
